@@ -1,0 +1,496 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout, on a machine with an NVIDIA H100 and the
+CUDA toolkit. Phases, each printing one JSON line; any failure exits
+non-zero:
+
+1. device: a CUDA card, its name and power limit (``nvidia-smi``); TF32 off.
+2. build: every kernel under ``src/repro_torch/kernels/csrc``, one ``nvcc``
+   per source, all at once.
+3. parity: each kernel against its plain PyTorch version on the card, at the
+   serving path's shapes (bf16) and at a small fp32 shape.
+4. reference: reduced phi3.5-MoE (fp32) served on the card through the
+   kernels and through the plain path; greedy streams must be identical.
+5. serve: full-width phi3.5-MoE cut to 8 layers (bf16, seeded random
+   weights) in ``ContinuousEngine(kernels=True)`` serving a Poisson stream;
+   every request gets all its tokens, logits are finite, and the kernels'
+   launch counters match the path (decode_attn: 8 per decode step; moe_gmm:
+   8 per decode step and per prefill).
+6. timing: each kernel at the serve phase's decode shapes (CUDA events,
+   L2 flushed before each launch) beside its plain version, its bound and
+   a one-call PyTorch yardstick where one exists.
+7. profile: ten decode steps of the served model under ``torch.profiler``:
+   host wall time against device busy time (the idle share) and the
+   kernels that take the device time.
+
+Then a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
+Nothing of JAX is imported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(ROOT, "src")
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
+BF16_FLOP_PER_S = 989e12         # dense tensor-core bf16
+N_LAYERS = 8                     # depth cut: full widths, 8 of 32 layers
+SLOTS, CACHE_CAP = 8, 512
+
+
+def emit(phase: str, **kw) -> None:
+    print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def require(cond, phase: str, msg: str) -> None:
+    if not cond:
+        emit(phase, ok=False, error=msg)
+        raise SystemExit(1)
+
+
+def max_errs(got, want):
+    diff = (got.float() - want.float()).abs()
+    rel = diff / want.float().abs().clamp_min(1e-6)
+    return float(diff.max()), float(rel.max())
+
+
+def time_ms(fn, flush, iters: int = 20) -> float:
+    """Mean device ms of ``fn`` over ``iters`` runs, CUDA events around each
+    run, the L2 cache overwritten (``flush``) before each, after warm-up.
+    A ~0.5 ms device spin before each start event lets the host enqueue the
+    whole run first, so host launch latency stays out of the device time."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        flush.zero_()
+        torch.cuda._sleep(1_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / iters
+
+
+def bound(nbytes: float, flops: float):
+    """(bound_ms, bound_by): the larger of bytes over HBM rate and
+    operations over the bf16 tensor-core rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_device():
+    import torch
+    require(torch.cuda.is_available(), "device", "torch.cuda.is_available() "
+            "is false: this smoke run needs a CUDA card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit("device", ok=True, name=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda)
+    print(smi, flush=True)
+    return smi
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+    out = _build.build_all()
+    ptxas = {name: [ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln]
+             for name, log in out["logs"].items()}
+    emit("build", ok=True, seconds=out["seconds"], ptxas=ptxas)
+
+
+def _moe_case(torch, gen, e, c, d, f, dtype, sizes):
+    dev = "cuda"
+    x = torch.randn((e, c, d), generator=gen, device=dev, dtype=dtype)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    x[torch.arange(c, device=dev)[None, :] >= gs[:, None]] = 0   # pad rows
+    w = [torch.randn(shape, generator=gen, device=dev, dtype=dtype) * s
+         for shape, s in (((e, d, f), d ** -0.5), ((e, d, f), d ** -0.5),
+                          ((e, f, d), f ** -0.5))]
+    return x, w, gs
+
+
+def phase_parity():
+    """Each kernel against its plain version. Tolerances: bf16 2e-2 (the
+    reference's kernel tolerance; h and the output round to bf16 at places
+    that depend on summation order), fp32 1e-4 (sums over up to 6400 terms
+    in another order)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attn import decode_attn
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    results = {"moe_gmm": 0.0, "decode_attn": 0.0}
+    tol = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+    # Group sizes: empty experts, full buckets and partial ones.
+    moe_cases = [
+        (16, 8, 4096, 6400, torch.bfloat16,
+         [0, 8, 3, 0, 1, 8, 2, 0, 5, 0, 1, 7, 0, 2, 0, 4]),
+        (16, 24, 4096, 6400, torch.bfloat16,
+         [24, 0, 17, 9, 0, 24, 1, 12, 0, 20, 5, 0, 24, 8, 16, 0]),
+        (3, 40, 96, 128, torch.float32, [0, 40, 13]),
+    ]
+    for e, c, d, f, dtype, sizes in moe_cases:
+        x, (wg, wu, wd), gs = _moe_case(torch, gen, e, c, d, f, dtype, sizes)
+        got = moe_gmm(x, wg, wu, wd, group_sizes=gs)
+        want = ref.moe_ffn_ref(x, wg, wu, wd, group_sizes=gs)
+        torch.cuda.synchronize()
+        ab, rel = max_errs(got, want)
+        dead_zero = bool((got[torch.arange(c, device="cuda")[None, :]
+                              >= gs[:, None]] == 0).all())
+        emit("parity", kernel="moe_gmm", shape=[e, c, d, f],
+             dtype=str(dtype), max_abs_err=ab, max_rel_err=rel,
+             tol=tol[dtype], dead_rows_zero=dead_zero)
+        require(ab <= tol[dtype] and dead_zero, "parity",
+                f"moe_gmm {[e, c, d, f]} {dtype}: max abs err {ab}")
+        if dtype == torch.bfloat16:
+            results["moe_gmm"] = max(results["moe_gmm"], ab)
+        del x, wg, wu, wd
+    attn_cases = [
+        (8, 32, 8, 128, CACHE_CAP, torch.bfloat16),
+        (3, 8, 2, 64, 200, torch.float32),
+    ]
+    for b, h, hkv, d, s, dtype in attn_cases:
+        q = torch.randn((b, h, d), generator=gen, device="cuda", dtype=dtype)
+        k, v = (torch.randn((b, s, hkv, d), generator=gen, device="cuda",
+                            dtype=dtype) for _ in range(2))
+        valid = torch.randint(1, s + 1, (b,), generator=gen, device="cuda",
+                              dtype=torch.int32)
+        valid[0], valid[-1] = 1, s
+        got = decode_attn(q, k, v, valid, block_s=64)
+        want = ref.decode_attn_ref(q, k, v, valid)
+        torch.cuda.synchronize()
+        ab, rel = max_errs(got, want)
+        emit("parity", kernel="decode_attn", shape=[b, h, hkv, d, s],
+             dtype=str(dtype), max_abs_err=ab, max_rel_err=rel,
+             tol=tol[dtype], valid_len=valid.tolist())
+        require(ab <= tol[dtype], "parity",
+                f"decode_attn {[b, h, hkv, d, s]} {dtype}: max abs err {ab}")
+        if dtype == torch.bfloat16:
+            results["decode_attn"] = max(results["decode_attn"], ab)
+    return results
+
+
+def _stream(cfg, n, prompt_lo, prompt_hi, new_lo, new_hi, seed):
+    import numpy as np
+    from repro_torch.serving import poisson_requests
+    rng = np.random.default_rng(seed)
+    reqs = poisson_requests(rng, n, 0.5, cfg.vocab, prompt_hi, new_lo, new_hi)
+    for r in reqs:
+        r.prompt = r.prompt[: int(rng.integers(prompt_lo, prompt_hi + 1))]
+    return reqs
+
+
+def phase_reference():
+    """Kernel path vs plain path on the card, reduced phi3.5-MoE in fp32."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import ContinuousEngine, EngineConfig
+    cfg = get_config("phi3.5-moe-42b-a6.6b").reduced()
+    model = Model(cfg, device="cuda")
+    params = model.init(0)
+    streams = []
+    for kernels in (True, False):
+        eng = ContinuousEngine(model, params, batch_slots=3, cache_cap=64,
+                               config=EngineConfig(kernels=kernels))
+        reqs = eng.serve(_stream(cfg, 6, 5, 20, 4, 12, seed=1))
+        streams.append([list(r.out_tokens) for r in reqs])
+    emit("reference", arch=cfg.arch_id, requests=len(streams[0]),
+         identical=streams[0] == streams[1])
+    require(streams[0] == streams[1], "reference",
+            "kernel-path greedy streams differ from the plain path's")
+
+
+def phase_serve():
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attn import decode_attn
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    from repro_torch.models import Model
+    from repro_torch.serving import ContinuousEngine, EngineConfig, serve_stream
+
+    cfg = dataclasses.replace(get_config("phi3.5-moe-42b-a6.6b"),
+                              n_layers=N_LAYERS)
+    model = Model(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in _leaves(params))
+    eng = ContinuousEngine(model, params, batch_slots=SLOTS,
+                           cache_cap=CACHE_CAP,
+                           config=EngineConfig(kernels=True))
+    eng.serve(_stream(cfg, 1, 64, 64, 2, 2, seed=2))          # warm-up
+    torch.cuda.synchronize()
+
+    reqs = _stream(cfg, 10, 64, 200, 16, 64, seed=0)
+    steps = []
+    dec0, pre0 = eng.decode_steps, eng.prefills
+
+    def timed_step():
+        pre, active = eng.prefills, eng.num_active
+        t = time.perf_counter()
+        worked = eng.step()
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t, eng.prefills - pre,
+                      eng.num_active, active))
+        return worked
+
+    torch.cuda.reset_peak_memory_stats()
+    moe_gmm.launches = decode_attn.launches = 0
+    t0 = time.perf_counter()
+    serve_stream(timed_step, [(eng, reqs)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"moe_gmm": moe_gmm.launches,
+                "decode_attn": decode_attn.launches}
+    decodes, prefills = eng.decode_steps - dec0, eng.prefills - pre0
+    peak = torch.cuda.max_memory_allocated()
+
+    complete = all(len(r.out_tokens) == r.max_new_tokens for r in reqs)
+    require(complete, "serve", "a request did not get all its tokens")
+    want = {"decode_attn": decodes * N_LAYERS,
+            "moe_gmm": (decodes + prefills) * N_LAYERS}
+    require(launches == want, "serve",
+            f"launch counts {launches} != expected {want}")
+    # Logits of one more decode over the served cache (every row frozen)
+    # and of one prefill: finite, of the padded-vocab width.
+    frozen = torch.zeros(SLOTS, dtype=torch.bool, device="cuda")
+    logits, _ = eng.model.decode_step(params, eng.tokens, eng.cache, frozen)
+    finite = bool(torch.isfinite(logits).all())
+    require(finite and tuple(logits.shape) == (SLOTS, 1, model.padded_vocab),
+            "serve", f"decode logits {tuple(logits.shape)} finite={finite}")
+
+    pure = [s for s in steps if s[1] == 0 and s[3] > 0]
+    step_ms = np.array([s[0] * 1e3 for s in pure])
+    dec_tokens = sum(s[3] for s in pure)
+    total = sum(len(r.out_tokens) for r in reqs)
+    prefill_ms = _prefill_ms(model.with_kernels(), params, eng.cache_cap)
+    out = {
+        "arch": cfg.arch_id, "n_layers": N_LAYERS,
+        "depth_cut": "8 of 32 layers, every published width",
+        "dtype": cfg.dtype, "weights_GB": weight_bytes / 1e9,
+        "init_s": init_s, "slots": SLOTS, "cache_cap": CACHE_CAP,
+        "requests": len(reqs), "tokens": total, "wall_s": wall,
+        "tok_per_s": total / wall, "decode_steps": decodes,
+        "prefills": prefills, "pure_decode_steps": len(pure),
+        "decode_tok_per_s": dec_tokens / (step_ms.sum() / 1e3),
+        "step_ms_mean": float(step_ms.mean()),
+        "step_ms_p50": float(np.percentile(step_ms, 50)),
+        "step_ms_p95": float(np.percentile(step_ms, 95)),
+        "prefill_ms": prefill_ms, "launches": launches,
+        "max_memory_allocated_GB": peak / 1e9, "logits_finite": finite,
+    }
+    emit("serve", ok=True, **out)
+    return model, params, eng, launches
+
+
+def _prefill_ms(model, params, cap):
+    """Host ms of one batch-1 prefill (synchronised) at each pow2 bucket the
+    stream's 64-200-token prompts fall into; best of three."""
+    import torch
+    from repro_torch.kernels.decode_attn import decode_attn
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    counts = (moe_gmm.launches, decode_attn.launches)
+    out = {}
+    for p in (64, 128, 256):
+        toks = torch.randint(1, model.cfg.vocab, (1, p), device="cuda")
+        best = math.inf
+        for _ in range(3):
+            cache = model.init_cache(1, cap)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            model.prefill(params, {"tokens": toks}, cache)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t)
+        out[str(p)] = best * 1e3
+    moe_gmm.launches, decode_attn.launches = counts
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_timing(model, params, eng, launches, errs):
+    """Each kernel at the serve phase's decode shapes, on layer 0's tensors."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attn import decode_attn
+    from repro_torch.kernels.moe_gmm import align_capacity, moe_gmm
+    from repro_torch.models import moe as tm
+    cfg = model.cfg
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+
+    # moe_gmm: the decode step's buckets, routed by layer 0's router.
+    layer0 = params["segments"][0][0]["moe"]
+    ex = {k: v[0] for k, v in layer0["experts"].items()}
+    d, e = cfg.d_model, cfg.moe.n_experts
+    dtype = ex["w_gate"].dtype
+    xt = torch.randn((SLOTS, d), generator=gen, device="cuda", dtype=dtype)
+    _, idx, _ = tm.route(layer0["router"][0], xt, cfg.moe)
+    cap = tm.capacity(SLOTS, cfg.moe.top_k, e, cfg.moe.capacity_factor)
+    cap = align_capacity(cap, model.with_kernels().kernels.block_c)
+    _, sizes, slot, keep = tm.sort_dispatch(idx, e, cap)
+    gs = torch.clamp(sizes, max=cap)
+    buf = torch.zeros((e, cap, d), dtype=dtype, device="cuda")
+    buf[idx.reshape(-1).long(), slot.reshape(-1).long()] = \
+        xt[torch.arange(SLOTS, device="cuda").repeat_interleave(cfg.moe.top_k)]
+    live_rows = int(gs.sum())
+    live_experts = int((gs > 0).sum())
+    f = cfg.moe.d_ff
+    args = (buf, ex["w_gate"], ex["w_up"], ex["w_down"])
+    ms = time_ms(lambda: moe_gmm(*args, group_sizes=gs), flush)
+    plain = time_ms(lambda: ref.moe_ffn_ref(*args, group_sizes=gs), flush, 5)
+    nbytes = (live_experts * 3 * d * f + 2 * buf.numel()) * buf.element_size() + e * 4
+    b_ms, b_by = bound(nbytes, 2 * 3 * d * f * live_rows)
+    rows.append({"name": "moe_gmm", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+                 "replaces": "src/repro/kernels/moe_gmm.py:112",
+                 "launches": launches["moe_gmm"],
+                 "max_abs_err": errs["moe_gmm"], "ms": ms, "plain_ms": plain,
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                 "shape": [e, cap, d, f], "group_sizes": gs.tolist(),
+                 "bytes": nbytes})
+
+    # decode_attn: layer 0's served cache, at each slot's fill level.
+    k = eng.cache["segments"][0][0]["k"][0]
+    v = eng.cache["segments"][0][0]["v"][0]
+    q = torch.randn((SLOTS, cfg.n_heads, cfg.head_dim), generator=gen,
+                    device="cuda", dtype=k.dtype)
+    valid = torch.clamp(eng.cache["len"] + 1, max=CACHE_CAP).to(torch.int32)
+    bs = model.with_kernels().kernels.block_s
+    ms = time_ms(lambda: decode_attn(q, k, v, valid, block_s=bs), flush)
+    plain = time_ms(lambda: ref.decode_attn_ref(q, k, v, valid), flush)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)             # (B, Hkv, S, D)
+    mask = (torch.arange(CACHE_CAP, device="cuda")[None, :]
+            < valid[:, None])[:, None, None, :]
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True), flush)
+    n_valid = int(valid.sum())
+    nbytes = ((2 * n_valid * cfg.n_kv_heads * cfg.head_dim + 2 * q.numel())
+              * q.element_size() + SLOTS * 4)
+    b_ms, b_by = bound(nbytes, 4 * cfg.n_heads * cfg.head_dim * n_valid)
+    rows.append({"name": "decode_attn", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/decode_attn.cu",
+                 "replaces": "src/repro/kernels/decode_attn.py:91",
+                 "launches": launches["decode_attn"],
+                 "max_abs_err": errs["decode_attn"], "ms": ms,
+                 "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": lib,
+                 "shape": [SLOTS, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                           CACHE_CAP],
+                 "valid_len": valid.tolist(), "bytes": nbytes})
+    for r in rows:
+        emit("timing", **r)
+    return rows
+
+
+def phase_profile(eng, steps: int = 10):
+    """Decode steps as the engine runs them (every row frozen, so the served
+    cache is left as it is): step, argmax, copy of the tokens to the host.
+    Timed once plain and once under ``torch.profiler``; the idle share is
+    one minus the device kernels' busy time over the plain step time (the
+    profiler slows the host)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    mask = torch.zeros(SLOTS, dtype=torch.bool, device="cuda")
+    vocab = eng.model.cfg.vocab
+
+    def step():
+        logits, _ = eng.model.decode_step(eng.params, eng.tokens, eng.cache,
+                                          mask)
+        torch.argmax(logits[:, :, :vocab], dim=-1).cpu()
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / steps
+
+    run()                                                   # warm-up
+    plain_ms = run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiled_ms = run()
+    kernels = [(e.key, e.self_device_time_total / 1e3 / steps,
+                e.count / steps)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(k[1] for k in kernels)
+    kernels.sort(key=lambda k: -k[1])
+    emit("profile", steps=steps, step_ms=plain_ms,
+         step_ms_profiled=profiled_ms,
+         device_busy_ms_per_step=busy if kernels else None,
+         device_idle_share=(1 - busy / plain_ms) if kernels else None,
+         device_kernels_per_step=sum(k[2] for k in kernels),
+         top=[{"name": n[:70], "ms_per_step": t, "calls_per_step": c}
+              for n, t, c in kernels[:12]])
+
+
+def main() -> int:
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        print("chip_smoke.py runs from the root of a checkout of the repo "
+              "(src/repro_torch is missing)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    smi = phase_device()
+    phase_build()
+    errs = phase_parity()
+    phase_reference()
+    model, params, eng, launches = phase_serve()
+    rows = phase_timing(model, params, eng, launches, errs)
+    phase_profile(eng)
+    import torch
+    print(smi, flush=True)
+    print(json.dumps({"kernels": [
+        {k: r[k] for k in ("name", "route", "source", "replaces", "launches",
+                           "max_abs_err", "ms", "plain_ms", "bound_ms",
+                           "bound_by", "library_ms")} for r in rows]}),
+        flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,9 @@
+"""Model layers, MoE and the decoder stack behind the ``Model`` facade."""
+
+from .layers import KernelConfig
+from .model import Model
+from .transformer import (Segment, forward, init_cache, init_params,
+                          merge_cache_slot, padded_vocab, segments_of)
+
+__all__ = ["KernelConfig", "Model", "Segment", "forward", "init_cache",
+           "init_params", "merge_cache_slot", "padded_vocab", "segments_of"]

@@ -1,0 +1,92 @@
+"""GQA attention block with prefill and decode modes (port of the GQA part of
+``repro/models/attention.py``).
+
+Caches are fixed-capacity ``{"k", "v"}`` tensors of shape (B, cap, Hkv, D)
+and are updated IN PLACE (the reference returns a new cache instead). MLA,
+cross-attention, sliding-window rings and chunked continuation are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..kernels.ops import decode_attn_auto
+from .layers import apply_rope, attention_core
+
+
+def init_attn_cache(cfg, batch: int, cap: int, dtype, device) -> dict:
+    shape = (batch, cap, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _cache_write(cache_arr, new, slot):
+    """Write one token per batch row in place: row i at sequence index
+    ``slot[i]`` (a (B,) vector) or every row at the scalar ``slot``.
+    new: (B, 1, Hkv, D)."""
+    new = new[:, 0].to(cache_arr.dtype)
+    if slot.ndim == 1:
+        rows = torch.arange(cache_arr.shape[0], device=cache_arr.device)
+        cache_arr[rows, slot] = new
+    else:
+        cache_arr[:, slot] = new
+
+
+def attn_block(p, x, *, cfg, pos, cache, length=None, mode="prefill",
+               kernels=None, row_mask=None):
+    """GQA attention. x: (B, S, d); pos: (B, S) absolute positions.
+
+    mode "prefill": a fresh one-shot prefill; its keys are written to cache
+    positions [0, S). mode "decode": S == 1, the token is written at
+    ``min(length, cap - 1)`` and attends the first ``min(length + 1, cap)``
+    positions; through ``ops.decode_attn_auto`` when ``kernels`` is set.
+    ``row_mask`` (decode, (B,) bool): rows where it is False attend with
+    their token written, as in the reference, but keep their previous cache
+    contents afterwards. Returns y (B, S, d); the cache is updated in place.
+    """
+    b, s, _ = x.shape
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+
+    if mode == "prefill":
+        if length is not None:
+            raise NotImplementedError("chunked prefill continuation is not "
+                                      "ported")
+        cap = cache["k"].shape[1]
+        if cap < s:
+            raise ValueError(f"prefill of {s} tokens exceeds the cache "
+                             f"capacity {cap}")
+        out = attention_core(q, k, v, causal_offset=0, valid_len=None)
+        cache["k"][:, :s] = k
+        cache["v"][:, :s] = v
+    elif mode == "decode":
+        cap = cache["k"].shape[1]
+        slot = torch.clamp(length, max=cap - 1)
+        old = None
+        if row_mask is not None:
+            rows = torch.arange(b, device=x.device)
+            old = (cache["k"][rows, slot].clone(),
+                   cache["v"][rows, slot].clone())
+        _cache_write(cache["k"], k, slot)
+        _cache_write(cache["v"], v, slot)
+        valid = torch.clamp(length + 1, max=cap)
+        if kernels is not None:
+            out = decode_attn_auto(q[:, 0], cache["k"], cache["v"], valid,
+                                   block_s=kernels.block_s)[:, None]
+        else:
+            out = attention_core(q, cache["k"], cache["v"],
+                                 causal_offset=None, valid_len=valid)
+        if old is not None:
+            # Every row rewrites its slot (no host sync on a data-dependent
+            # row count): frozen rows get their previous contents back.
+            keep = row_mask.view(b, 1, 1)
+            for name, prev in zip(("k", "v"), old):
+                cache[name][rows, slot] = torch.where(
+                    keep, cache[name][rows, slot], prev)
+    else:
+        raise ValueError(f"mode {mode!r} is not ported (prefill | decode)")
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])

@@ -1,0 +1,125 @@
+"""Shared neural building blocks (port of ``repro/models/layers.py``).
+
+Plain functions on tensors; params are nested dicts of tensors in the JAX
+package's layouts. Reductions and products the reference asks in fp32
+(``preferred_element_type=float32``) are upcast explicitly here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..kernels.ref import act_fn
+
+_NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelConfig:
+    """Kernel-path settings for the serving hot path.
+
+    Attaching one to a ``Model`` (``Model.with_kernels``) routes decode-step
+    attention through ``kernels.ops.decode_attn_auto`` and MoE dispatch
+    through the sort-based bucketed path feeding ``kernels.ops.moe_ffn``.
+
+    ``block_c``: capacity-row block that ``align_capacity`` pads buckets to
+    (as in the reference). ``block_s``: cache positions per split-S chunk of
+    the decode kernel; 64 rather than the TPU's 512, so that a 512-slot
+    cache gives 8 chunks per (row, kv head) and enough blocks for the card.
+    """
+
+    block_c: int = 128
+    block_s: int = 64
+
+
+def rmsnorm(w, x, eps: float):
+    x32 = x.float()
+    y = x32 * torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
+    return (y * (1.0 + w.float())).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x, pos, theta: float):
+    """x: (..., S, H, D); pos: broadcastable to (..., S)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                 # (D/2,)
+    angles = pos[..., None].float() * freqs                # (..., S, D/2)
+    angles = angles[..., None, :]                          # (..., S, 1, D/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def _repeat_kv(k, n_rep: int):
+    if n_rep == 1:
+        return k
+    b, s, h, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(
+        b, s, h * n_rep, d)
+
+
+def plain_attention(q, k, v, mask):
+    """GQA attention without repeating KV.
+
+    q: (B,Sq,Hkv,G,D); k,v: (B,Sk,Hkv,D); mask: (1|B,1,Sq,Sk) bool or None.
+    """
+    scale = q.shape[-1] ** -0.5
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
+    if mask is not None:
+        scores = torch.where(mask[:, :, None], scores, _NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.to(q.dtype)
+
+
+def attention_core(q, k, v, *, causal_offset, valid_len):
+    """Plain GQA attention. q: (B,Sq,H,D); k,v: (B,Sk,Hkv,D), H = Hkv*G.
+
+    ``causal_offset``: query i may attend key j iff j <= i + offset (None =
+    no causal mask). ``valid_len``: keys >= valid_len are masked; a scalar
+    or a (B,) vector of per-slot fill levels.
+
+    The single-query form keeps the (Hkv, G) split; the multi-query form
+    repeats KV, as the reference does. The reference's flash (blocked)
+    form for Sq*Sk > 4M, sliding windows and fill levels at Sq > 1 are not
+    ported: the serving slice's prefills are fresh and at most the cache
+    size.
+    """
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    kj = torch.arange(sk, device=q.device)
+    if sq == 1:
+        qg = q.reshape(b, sq, hkv, h // hkv, d)
+        mask = None
+        if valid_len is not None:
+            vl = torch.as_tensor(valid_len, device=q.device)
+            if vl.ndim == 1:       # per-slot fill levels: one row per slot
+                mask = kj[None, None, None, :] < vl[:, None, None, None]
+            else:
+                mask = (kj < vl)[None, None, None, :]
+        return plain_attention(qg, k, v, mask).reshape(b, sq, h, d)
+
+    if valid_len is not None:
+        raise NotImplementedError("fill levels at Sq > 1 (chunked "
+                                  "continuation) are not ported")
+    k = _repeat_kv(k, h // hkv)
+    v = _repeat_kv(v, h // hkv)
+    qg = q[:, :, :, None, :]                       # (B,Sq,H,1,D): G=1 form
+    mask = None
+    if causal_offset is not None:
+        qi = torch.arange(sq, device=q.device)[:, None]
+        mask = (kj[None, :] <= qi + causal_offset)[None, None]
+    return plain_attention(qg, k, v, mask).reshape(b, sq, h, d)
+
+
+def ffn_apply(p, x, act: str):
+    h = act_fn(act)(x @ p["w_gate"]) * (x @ p["w_up"])
+    return h @ p["w_down"]

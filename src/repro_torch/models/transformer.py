@@ -1,0 +1,211 @@
+"""Decoder stack for the GQA families (port of ``repro/models/transformer.py``).
+
+Layers are grouped into segments as in the reference, and params and caches
+are stacked per segment: every leaf of a segment's per-position dict has a
+leading ``count`` axis. The reference's ``lax.scan`` over that axis is a
+Python loop over the stacked layers here.
+
+Layer kinds ported: G (global attention + dense FFN) and E (attention + MoE
+FFN). Caches are updated in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from . import attention as attn_mod
+from .layers import ffn_apply, rmsnorm
+from .moe import moe_apply
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    kinds: tuple[str, ...]
+    count: int
+
+
+def segments_of(cfg) -> list[Segment]:
+    """Segment decomposition of the layer stack (E and G families)."""
+    n = cfg.n_layers
+    if cfg.moe is not None:
+        if cfg.moe.first_dense_layers:
+            raise NotImplementedError("leading dense layers (D kind) are not "
+                                      "ported")
+        return [Segment(("E",), n)]
+    return [Segment(("G",), n)]
+
+
+def padded_vocab(cfg) -> int:
+    """Vocab rounded up to a multiple of 256, as in the reference."""
+    return -(-cfg.vocab // 256) * 256
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+# ---------------------------------------------------------------------------
+# Parameter init
+# ---------------------------------------------------------------------------
+
+def _normal(shape, scale, dtype, device, gen):
+    return torch.randn(shape, dtype=dtype, device=device, generator=gen).mul_(scale)
+
+
+def _init_segment(seg: Segment, cfg, dtype, device, gen) -> tuple:
+    n, d = seg.count, cfg.d_model
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    out = []
+    for kind in seg.kinds:
+        p = {"ln1": torch.zeros((n, d), dtype=dtype, device=device),
+             "attn": {
+                 "wq": _normal((n, d, h, hd), d ** -0.5, dtype, device, gen),
+                 "wk": _normal((n, d, hkv, hd), d ** -0.5, dtype, device, gen),
+                 "wv": _normal((n, d, hkv, hd), d ** -0.5, dtype, device, gen),
+                 "wo": _normal((n, h, hd, d), (h * hd) ** -0.5, dtype,
+                               device, gen)},
+             "ln2": torch.zeros((n, d), dtype=dtype, device=device)}
+        if kind == "E":
+            m = cfg.moe
+            e, f = m.n_experts, m.d_ff
+            p["moe"] = {
+                "router": _normal((n, d, e), d ** -0.5, torch.float32,
+                                  device, gen),
+                "experts": {
+                    "w_gate": _normal((n, e, d, f), d ** -0.5, dtype, device, gen),
+                    "w_up": _normal((n, e, d, f), d ** -0.5, dtype, device, gen),
+                    "w_down": _normal((n, e, f, d), f ** -0.5, dtype, device, gen)}}
+        else:
+            f = cfg.d_ff
+            p["ffn"] = {
+                "w_gate": _normal((n, d, f), d ** -0.5, dtype, device, gen),
+                "w_up": _normal((n, d, f), d ** -0.5, dtype, device, gen),
+                "w_down": _normal((n, f, d), f ** -0.5, dtype, device, gen)}
+        out.append(p)
+    return tuple(out)
+
+
+def init_params(cfg, seed: int = 0, device="cpu") -> dict:
+    """Seeded random params with the reference's shapes, scales and dtypes
+    (``init_params``); the numbers come from a ``torch.Generator``, so they
+    differ from JAX's for the same seed. Made directly on ``device``."""
+    dtype = torch_dtype(cfg.dtype)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    vp, d = padded_vocab(cfg), cfg.d_model
+    p = {"embed": _normal((vp, d), 0.02, dtype, device, gen),
+         "final_norm": torch.zeros((d,), dtype=dtype, device=device),
+         "segments": tuple(_init_segment(seg, cfg, dtype, device, gen)
+                           for seg in segments_of(cfg))}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = _normal((d, vp), d ** -0.5, dtype, device, gen)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Caches
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg, batch: int, cap: int, dtype=None, per_slot_len=False,
+               device="cpu") -> dict:
+    """``{"len", "segments"}`` with leaves (count, batch, cap, Hkv, D).
+    ``per_slot_len=True`` makes ``len`` a (batch,) vector: each row (decode
+    slot) tracks its own sequence length."""
+    dtype = dtype or torch_dtype(cfg.dtype)
+    shape_len = (batch,) if per_slot_len else ()
+    segs = []
+    for seg in segments_of(cfg):
+        segs.append(tuple(
+            {name: t.expand((seg.count,) + t.shape).clone()
+             for name, t in attn_mod.init_attn_cache(
+                 cfg, batch, cap, dtype, device).items()}
+            for _ in seg.kinds))
+    return {"len": torch.zeros(shape_len, dtype=torch.int32, device=device),
+            "segments": tuple(segs)}
+
+
+def merge_cache_slot(cache, sub, slot: int):
+    """Write a batch-1 cache ``sub`` into row ``slot`` of a multi-slot cache
+    (in place; leaves are (count, batch, ...), so the slot is axis 1) and set
+    that slot's length. Returns ``cache``."""
+    for seg_full, seg_sub in zip(cache["segments"], sub["segments"]):
+        for full, new in zip(seg_full, seg_sub):
+            for name in full:
+                full[name][:, slot] = new[name][:, 0]
+    cache["len"][slot] = sub["len"]
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def _apply_layer(kind, p, x, entry, *, cfg, kernels, mode, pos, length,
+                 row_mask):
+    """One layer. Returns (x, aux); the cache entry is updated in place."""
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    y = attn_mod.attn_block(p["attn"], h, cfg=cfg, pos=pos, cache=entry,
+                            length=length, mode=mode, kernels=kernels,
+                            row_mask=row_mask)
+    x = x + y
+    h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    if kind == "E":
+        y2, aux = moe_apply(p["moe"], h2, cfg.moe, cfg.act, kernels)
+    else:
+        y2, aux = ffn_apply(p["ffn"], h2, cfg.act), x.new_zeros((), dtype=torch.float32)
+    return x + y2, aux
+
+
+def forward(params, cfg, *, tokens, mode, cache, kernels=None,
+            row_mask=None):
+    """Run the decoder stack in "prefill" or "decode" mode.
+
+    prefill: tokens (B, S), a fresh prefill written from cache position 0.
+    decode: tokens (B, 1) at per-slot positions ``cache["len"]``.
+    ``row_mask`` (decode only, (B,) bool): rows where it is False keep their
+    cache contents and length; their logits are computed all the same.
+    Returns (logits (B, S, padded_vocab), aux_loss); ``cache`` is updated
+    in place (its ``len`` advances by S, or by 1 on unmasked decode rows).
+    """
+    x = params["embed"][tokens]
+    x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+    b, s = x.shape[:2]
+    if mode == "decode":
+        length = cache["len"]
+        pos = (length[:, None].expand(b, s) if length.ndim == 1
+               else length.expand(b, s))
+    else:
+        length = None
+        pos = torch.arange(s, device=x.device)[None].expand(b, s)
+
+    aux_total = x.new_zeros((), dtype=torch.float32)
+    for si, seg in enumerate(segments_of(cfg)):
+        seg_params = params["segments"][si]
+        seg_cache = cache["segments"][si]
+        for blk in range(seg.count):
+            for i, kind in enumerate(seg.kinds):
+                p_l = _index_tree(seg_params[i], blk)
+                entry = {name: t[blk] for name, t in seg_cache[i].items()}
+                x, aux = _apply_layer(kind, p_l, x, entry, cfg=cfg,
+                                      kernels=kernels, mode=mode, pos=pos,
+                                      length=length, row_mask=row_mask)
+                aux_total = aux_total + aux
+
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = x @ head.to(x.dtype)
+    if mode == "decode":
+        inc = (row_mask.to(torch.int32) if row_mask is not None else 1)
+        cache["len"] += inc
+    else:
+        cache["len"] += s
+    return logits, aux_total
+
+
+def _index_tree(tree, i):
+    if isinstance(tree, dict):
+        return {k: _index_tree(v, i) for k, v in tree.items()}
+    return tree[i]
