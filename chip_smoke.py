@@ -11,7 +11,8 @@ non-zero:
 2. build: every kernel under ``src/repro_torch/kernels/csrc``, one ``nvcc``
    per source, all at once.
 3. parity: each kernel against its plain PyTorch version on the card, at the
-   serving path's shapes (bf16) and at a small fp32 shape.
+   serving path's shapes (bf16: decode and prefill buckets, fill levels
+   0, 1 and S), at ragged edges, and at small fp32 shapes.
 4. reference: reduced phi3.5-MoE (fp32) served on the card through the
    kernels and through the plain path; greedy streams must be identical.
 5. serve: full-width phi3.5-MoE cut to 8 layers (bf16, seeded random
@@ -21,7 +22,8 @@ non-zero:
    8 per decode step and per prefill).
 6. timing: each kernel at the serve phase's decode shapes (CUDA events,
    L2 flushed before each launch) beside its plain version, its bound and
-   a one-call PyTorch yardstick where one exists.
+   a one-call PyTorch yardstick where one exists; then ``moe_gmm`` at the
+   batch-1 prefill buckets (C = 16, 24, 48 for 64, 128, 256 tokens).
 7. profile: ten decode steps of the served model under ``torch.profiler``:
    host wall time against device busy time (the idle share) and the
    kernels that take the device time.
@@ -137,23 +139,34 @@ def phase_parity():
     """Each kernel against its plain version. Tolerances: bf16 2e-2 (the
     reference's kernel tolerance; h and the output round to bf16 at places
     that depend on summation order), fp32 1e-4 (sums over up to 6400 terms
-    in another order)."""
+    in another order). Rows past a bucket's group size must be exactly 0."""
     import torch
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attn import decode_attn
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.decode_attn import geometry as attn_geometry
+    from repro_torch.kernels.moe_gmm import geometry as moe_geometry
     from repro_torch.kernels.moe_gmm import moe_gmm
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {"moe_gmm": 0.0, "decode_attn": 0.0}
     tol = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
-    # Group sizes: empty experts, full buckets and partial ones.
+    full = (16, 4096, 6400)                     # E, d, F of phi3.5-MoE
+    # Group sizes: empty experts, full buckets and partial ones, at the
+    # decode bucket (C = 8), the prefill buckets (16, 24, 48) and a prompt
+    # of 3 tokens; then ragged d/F, a bucket taller than one row block, and
+    # the fp32 route.
     moe_cases = [
-        (16, 8, 4096, 6400, torch.bfloat16,
-         [0, 8, 3, 0, 1, 8, 2, 0, 5, 0, 1, 7, 0, 2, 0, 4]),
-        (16, 24, 4096, 6400, torch.bfloat16,
+        (full, 3, torch.bfloat16, [0, 3, 1, 0, 2, 3, 0, 0, 1, 0, 0, 3, 0, 0, 2, 0]),
+        (full, 8, torch.bfloat16, [0, 8, 3, 0, 1, 8, 2, 0, 5, 0, 1, 7, 0, 2, 0, 4]),
+        (full, 16, torch.bfloat16,
+         [16, 0, 9, 16, 1, 8, 15, 0, 3, 16, 7, 0, 12, 16, 2, 5]),
+        (full, 24, torch.bfloat16,
          [24, 0, 17, 9, 0, 24, 1, 12, 0, 20, 5, 0, 24, 8, 16, 0]),
-        (3, 40, 96, 128, torch.float32, [0, 40, 13]),
+        (full, 48, torch.bfloat16,
+         [48, 31, 0, 47, 17, 48, 8, 33, 0, 40, 25, 1, 48, 36, 9, 29]),
+        ((3, 96, 136), 40, torch.bfloat16, [0, 40, 13]),
+        ((2, 64, 128), 100, torch.bfloat16, [100, 70]),
+        ((3, 96, 128), 40, torch.float32, [0, 40, 13]),
     ]
-    for e, c, d, f, dtype, sizes in moe_cases:
+    for (e, d, f), c, dtype, sizes in moe_cases:
         x, (wg, wu, wd), gs = _moe_case(torch, gen, e, c, d, f, dtype, sizes)
         got = moe_gmm(x, wg, wu, wd, group_sizes=gs)
         want = ref.moe_ffn_ref(x, wg, wu, wd, group_sizes=gs)
@@ -162,31 +175,45 @@ def phase_parity():
         dead_zero = bool((got[torch.arange(c, device="cuda")[None, :]
                               >= gs[:, None]] == 0).all())
         emit("parity", kernel="moe_gmm", shape=[e, c, d, f],
-             dtype=str(dtype), max_abs_err=ab, max_rel_err=rel,
+             dtype=str(dtype), route=moe_geometry(e, c, d, f, dtype)["route"],
+             group_sizes=sizes, max_abs_err=ab, max_rel_err=rel,
              tol=tol[dtype], dead_rows_zero=dead_zero)
         require(ab <= tol[dtype] and dead_zero, "parity",
-                f"moe_gmm {[e, c, d, f]} {dtype}: max abs err {ab}")
+                f"moe_gmm {[e, c, d, f]} {dtype}: max abs err {ab}, "
+                f"dead rows zero {dead_zero}")
         if dtype == torch.bfloat16:
             results["moe_gmm"] = max(results["moe_gmm"], ab)
         del x, wg, wu, wd
+    # Fill levels: 0 (every score masked: the mean of V), 1, S, and fills
+    # that are not multiples of 8, each through the serve path's entry
+    # point. The first case is the served shape (2 blocks a row, each
+    # copying its share in one tile: one buffer); the second has G = 8 and
+    # 32 blocks a row; the third's share outgrows shared memory, so it
+    # takes the two-buffer route (each tile copied during the one before);
+    # the last two are fp32, one with 32 lanes per position.
     attn_cases = [
-        (8, 32, 8, 128, CACHE_CAP, torch.bfloat16),
-        (3, 8, 2, 64, 200, torch.float32),
+        (8, 32, 8, 128, CACHE_CAP, torch.bfloat16,
+         [0, 1, CACHE_CAP, 77, 176, 316, 203, 299]),
+        (2, 16, 2, 128, 4096, torch.bfloat16, [4093, 1500]),
+        (2, 32, 8, 128, 16384, torch.bfloat16, [16384, 9001]),
+        (3, 8, 2, 64, 200, torch.float32, [0, 13, 200]),
+        (2, 4, 4, 128, 300, torch.float32, [300, 129]),
     ]
-    for b, h, hkv, d, s, dtype in attn_cases:
+    for b, h, hkv, d, s, dtype, fills in attn_cases:
         q = torch.randn((b, h, d), generator=gen, device="cuda", dtype=dtype)
         k, v = (torch.randn((b, s, hkv, d), generator=gen, device="cuda",
                             dtype=dtype) for _ in range(2))
-        valid = torch.randint(1, s + 1, (b,), generator=gen, device="cuda",
-                              dtype=torch.int32)
-        valid[0], valid[-1] = 1, s
-        got = decode_attn(q, k, v, valid, block_s=64)
+        valid = torch.tensor(fills, dtype=torch.int32, device="cuda")
+        got = ops.decode_attn_auto(q, k, v, valid)
         want = ref.decode_attn_ref(q, k, v, valid)
         torch.cuda.synchronize()
         ab, rel = max_errs(got, want)
+        geo = attn_geometry(b, h, hkv, s, d, dtype)
         emit("parity", kernel="decode_attn", shape=[b, h, hkv, d, s],
              dtype=str(dtype), max_abs_err=ab, max_rel_err=rel,
-             tol=tol[dtype], valid_len=valid.tolist())
+             tol=tol[dtype], valid_len=fills,
+             geometry={k_: geo[k_] for k_ in ("split", "lpp", "tile",
+                                              "buffers", "smem")})
         require(ab <= tol[dtype], "parity",
                 f"decode_attn {[b, h, hkv, d, s]} {dtype}: max abs err {ab}")
         if dtype == torch.bfloat16:
@@ -344,49 +371,65 @@ def _leaves(tree):
         yield tree
 
 
-def phase_timing(model, params, eng, launches, errs):
-    """Each kernel at the serve phase's decode shapes, on layer 0's tensors."""
+def _moe_timing(model, params, n_tokens, gen, flush):
+    """``moe_gmm`` on layer 0's experts over the buckets of ``n_tokens``
+    random tokens routed by layer 0's router: C = ``capacity(n_tokens)``
+    (8 at the decode step's 8 slots; 16, 24, 48 at a batch-1 prefill of 64,
+    128, 256 tokens). Bound: the live experts' weights, x and y once each,
+    and the group sizes."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attn import decode_attn
     from repro_torch.kernels.moe_gmm import align_capacity, moe_gmm
     from repro_torch.models import moe as tm
     cfg = model.cfg
-    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    rows = []
-
-    # moe_gmm: the decode step's buckets, routed by layer 0's router.
     layer0 = params["segments"][0][0]["moe"]
     ex = {k: v[0] for k, v in layer0["experts"].items()}
-    d, e = cfg.d_model, cfg.moe.n_experts
+    d, e, f = cfg.d_model, cfg.moe.n_experts, cfg.moe.d_ff
     dtype = ex["w_gate"].dtype
-    xt = torch.randn((SLOTS, d), generator=gen, device="cuda", dtype=dtype)
+    xt = torch.randn((n_tokens, d), generator=gen, device="cuda", dtype=dtype)
     _, idx, _ = tm.route(layer0["router"][0], xt, cfg.moe)
-    cap = tm.capacity(SLOTS, cfg.moe.top_k, e, cfg.moe.capacity_factor)
+    cap = tm.capacity(n_tokens, cfg.moe.top_k, e, cfg.moe.capacity_factor)
     cap = align_capacity(cap, model.with_kernels().kernels.block_c)
     _, sizes, slot, keep = tm.sort_dispatch(idx, e, cap)
     gs = torch.clamp(sizes, max=cap)
     buf = torch.zeros((e, cap, d), dtype=dtype, device="cuda")
-    buf[idx.reshape(-1).long(), slot.reshape(-1).long()] = \
-        xt[torch.arange(SLOTS, device="cuda").repeat_interleave(cfg.moe.top_k)]
+    kept = keep.reshape(-1)
+    buf[idx.reshape(-1).long()[kept], slot.reshape(-1).long()[kept]] = xt[
+        torch.arange(n_tokens, device="cuda").repeat_interleave(
+            cfg.moe.top_k)[kept]]
     live_rows = int(gs.sum())
     live_experts = int((gs > 0).sum())
-    f = cfg.moe.d_ff
     args = (buf, ex["w_gate"], ex["w_up"], ex["w_down"])
     ms = time_ms(lambda: moe_gmm(*args, group_sizes=gs), flush)
     plain = time_ms(lambda: ref.moe_ffn_ref(*args, group_sizes=gs), flush, 5)
     nbytes = (live_experts * 3 * d * f + 2 * buf.numel()) * buf.element_size() + e * 4
     b_ms, b_by = bound(nbytes, 2 * 3 * d * f * live_rows)
+    return {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "tokens": n_tokens, "shape": [e, cap, d, f],
+            "group_sizes": gs.tolist(), "bytes": nbytes,
+            "bound_share": b_ms / ms}
+
+
+def phase_timing(model, params, eng, launches, errs):
+    """Each kernel at the serve phase's decode shapes, on layer 0's tensors;
+    then ``moe_gmm`` at the batch-1 prefill buckets, on timing lines of
+    their own (the ``kernels`` line keeps the decode shapes)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attn import decode_attn
+    cfg = model.cfg
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+
+    # moe_gmm: the decode step's buckets, then the prefill buckets.
     rows.append({"name": "moe_gmm", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
                  "replaces": "src/repro/kernels/moe_gmm.py:112",
                  "launches": launches["moe_gmm"],
-                 "max_abs_err": errs["moe_gmm"], "ms": ms, "plain_ms": plain,
-                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                 "shape": [e, cap, d, f], "group_sizes": gs.tolist(),
-                 "bytes": nbytes})
+                 "max_abs_err": errs["moe_gmm"],
+                 **_moe_timing(model, params, SLOTS, gen, flush)})
 
     # decode_attn: layer 0's served cache, at each slot's fill level.
     k = eng.cache["segments"][0][0]["k"][0]
@@ -394,8 +437,7 @@ def phase_timing(model, params, eng, launches, errs):
     q = torch.randn((SLOTS, cfg.n_heads, cfg.head_dim), generator=gen,
                     device="cuda", dtype=k.dtype)
     valid = torch.clamp(eng.cache["len"] + 1, max=CACHE_CAP).to(torch.int32)
-    bs = model.with_kernels().kernels.block_s
-    ms = time_ms(lambda: decode_attn(q, k, v, valid, block_s=bs), flush)
+    ms = time_ms(lambda: decode_attn(q, k, v, valid), flush)
     plain = time_ms(lambda: ref.decode_attn_ref(q, k, v, valid), flush)
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)             # (B, Hkv, S, D)
     mask = (torch.arange(CACHE_CAP, device="cuda")[None, :]
@@ -418,6 +460,9 @@ def phase_timing(model, params, eng, launches, errs):
                  "valid_len": valid.tolist(), "bytes": nbytes})
     for r in rows:
         emit("timing", **r)
+    for n_tokens in (64, 128, 256):
+        emit("timing", name="moe_gmm", step="prefill",
+             **_moe_timing(model, params, n_tokens, gen, flush))
     return rows
 
 

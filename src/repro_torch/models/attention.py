@@ -75,8 +75,8 @@ def attn_block(p, x, *, cfg, pos, cache, length=None, mode="prefill",
         _cache_write(cache["v"], v, slot)
         valid = torch.clamp(length + 1, max=cap)
         if kernels is not None:
-            out = decode_attn_auto(q[:, 0], cache["k"], cache["v"], valid,
-                                   block_s=kernels.block_s)[:, None]
+            out = decode_attn_auto(q[:, 0], cache["k"], cache["v"],
+                                   valid)[:, None]
         else:
             out = attention_core(q, cache["k"], cache["v"],
                                  causal_offset=None, valid_len=valid)

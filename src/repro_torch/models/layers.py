@@ -25,13 +25,12 @@ class KernelConfig:
     through the sort-based bucketed path feeding ``kernels.ops.moe_ffn``.
 
     ``block_c``: capacity-row block that ``align_capacity`` pads buckets to
-    (as in the reference). ``block_s``: cache positions per split-S chunk of
-    the decode kernel; 64 rather than the TPU's 512, so that a 512-slot
-    cache gives 8 chunks per (row, kv head) and enough blocks for the card.
+    (as in the reference). The reference's ``block_s`` has no counterpart:
+    the port's decode kernel sizes its tiles from each block's share of
+    the live range.
     """
 
     block_c: int = 128
-    block_s: int = 64
 
 
 def rmsnorm(w, x, eps: float):
