@@ -14,19 +14,32 @@ non-zero:
    serving path's shapes (bf16: decode and prefill buckets, fill levels
    0, 1 and S), at ragged edges, and at small fp32 shapes.
 4. reference: reduced phi3.5-MoE (fp32) served on the card through the
-   kernels and through the plain path; greedy streams must be identical.
+   kernels and through the plain path, with one-shot admission and with
+   three chunked ones (chunks of 8; chunks of 8 with a budget of 12 and a
+   pool of 3; EDF over the same chunk and budget with a TTFT tenant);
+   kernel and plain streams must be identical, and the chunked streams
+   (pooled, budgeted, EDF) must equal the serialised chunked ones.
 5. serve: full-width phi3.5-MoE cut to 8 layers (bf16, seeded random
-   weights) in ``ContinuousEngine(kernels=True)`` serving a Poisson stream;
-   every request gets all its tokens, logits are finite, and the kernels'
-   launch counters match the path (decode_attn: 8 per decode step; moe_gmm:
-   8 per decode step and per prefill).
-6. timing: each kernel at the serve phase's decode shapes (CUDA events,
+   weights) in ``ContinuousEngine(kernels=True)`` serving a Poisson stream
+   with one-shot admission; every request gets all its tokens, logits are
+   finite, and the kernels' launch counters match the path (decode_attn: 8
+   per decode step; moe_gmm: 8 per decode step and per prefill). Step ms
+   (pure decode steps and steps that ran a prefill), TTFT, tok/s and peak
+   memory are printed, not gated.
+6. serve_chunked: the same model and stream with chunked admission, twice:
+   chunks of 64 serialised, then a pool of 4 under a budget of 136 tokens
+   (8 decode tokens and two chunks). Gates: every request complete, the
+   two runs' streams identical, no prefill left in flight, finite logits,
+   and exact launch counts (decode_attn: 8 per decode step; moe_gmm: 8 per
+   decode step and per chunk call). The same numbers as serve are printed,
+   and the ms of one 64-token chunk.
+7. timing: each kernel at the serve phase's decode shapes (CUDA events,
    L2 flushed before each launch) beside its plain version, its bound and
    a one-call PyTorch yardstick where one exists; then ``moe_gmm`` at the
    batch-1 prefill buckets (C = 16, 24, 48 for 64, 128, 256 tokens).
-7. profile: ten decode steps of the served model under ``torch.profiler``:
-   host wall time against device busy time (the idle share) and the
-   kernels that take the device time.
+8. profile: ten decode steps of the served model, then ten 64-token
+   chunk calls, under ``torch.profiler``: host wall time against device
+   busy time (the idle share) and the kernels that take the device time.
 
 Then a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
 Nothing of JAX is imported.
@@ -232,33 +245,144 @@ def _stream(cfg, n, prompt_lo, prompt_hi, new_lo, new_hi, seed):
 
 
 def phase_reference():
-    """Kernel path vs plain path on the card, reduced phi3.5-MoE in fp32."""
+    """Kernel path vs plain path on the card, reduced phi3.5-MoE in fp32,
+    with one-shot and with chunked admission. One request carries a tight
+    deadline of its own, so EDF reorders admission."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
-    from repro_torch.serving import ContinuousEngine, EngineConfig
+    from repro_torch.serving import (ContinuousEngine, EdfAdmission,
+                                     EngineConfig, TenantSpec)
     cfg = get_config("phi3.5-moe-42b-a6.6b").reduced()
     model = Model(cfg, device="cuda")
     params = model.init(0)
-    streams = []
-    for kernels in (True, False):
-        eng = ContinuousEngine(model, params, batch_slots=3, cache_cap=64,
-                               config=EngineConfig(kernels=kernels))
-        reqs = eng.serve(_stream(cfg, 6, 5, 20, 4, 12, seed=1))
-        streams.append([list(r.out_tokens) for r in reqs])
-    emit("reference", arch=cfg.arch_id, requests=len(streams[0]),
-         identical=streams[0] == streams[1])
-    require(streams[0] == streams[1], "reference",
-            "kernel-path greedy streams differ from the plain path's")
+    configs = {
+        "one_shot": {},
+        "chunk8": {"prefill_chunk": 8},
+        "chunk8_budget12_pool3": {"prefill_chunk": 8,
+                                  "step_token_budget": 12,
+                                  "prefill_pool": 3},
+        "edf_chunk8_budget12_ttft": {
+            "admission": EdfAdmission(chunk=8, budget=12),
+            "tenants": (TenantSpec(name="smoke", ttft_p95=8.0),)},
+    }
+    streams = {}
+    for name, kw in configs.items():
+        for kernels in (True, False):
+            eng = ContinuousEngine(model, params, batch_slots=3, cache_cap=64,
+                                   config=EngineConfig(kernels=kernels, **kw))
+            reqs = _stream(cfg, 6, 5, 20, 4, 12, seed=1)
+            reqs[3].deadline = reqs[3].arrival + 1.0
+            eng.serve(reqs)
+            streams[name, kernels] = [list(r.out_tokens) for r in reqs]
+    same = {name: streams[name, True] == streams[name, False]
+            for name in configs}
+    chunked = [name for name in configs if name != "one_shot"]
+    as_serial = {name: streams[name, True] == streams["chunk8", True]
+                 for name in chunked}
+    emit("reference", arch=cfg.arch_id, requests=len(streams["chunk8", True]),
+         configs=list(configs), kernel_equals_plain=same,
+         chunked_equals_serialised=as_serial)
+    require(all(same.values()), "reference",
+            f"kernel-path greedy streams differ from the plain path's: {same}")
+    require(all(as_serial.values()), "reference",
+            f"chunked streams differ from the serialised ones: {as_serial}")
+
+
+def _percentiles(xs, prefix: str) -> dict:
+    import numpy as np
+    a = np.asarray(xs, dtype=float)
+    if not a.size:
+        return {f"{prefix}_n": 0}
+    return {f"{prefix}_n": int(a.size), f"{prefix}_mean": float(a.mean()),
+            f"{prefix}_p50": float(np.percentile(a, 50)),
+            f"{prefix}_p95": float(np.percentile(a, 95))}
+
+
+def _serve_run(eng, reqs):
+    """Serve ``reqs`` through ``serve_stream``, each engine step timed on
+    the host clock and synchronised. The kernels' launch counters are set
+    to 0 just before the run and read just after. TTFT of a request: from
+    the start of the tick it was submitted in to the end of the step that
+    emitted its first token, in ms and in engine steps (that step
+    included). Returns (launches, calls, numbers), where calls are the
+    engine's decode steps and prefill calls (one-shot or chunk)."""
+    import torch
+    from repro_torch.kernels.decode_attn import decode_attn
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    from repro_torch.serving import serve_stream
+    steps, submitted, first = [], {}, {}
+
+    def timed_step():
+        t = time.perf_counter()
+        for r in eng.queue:
+            submitted.setdefault(id(r), (len(steps), t))
+        pre, dec, active = eng.prefills, eng.decode_steps, eng.num_active
+        worked = eng.step()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        steps.append(((t1 - t) * 1e3, eng.prefills - pre,
+                      eng.decode_steps - dec, active))
+        for r in reqs:
+            if r.out_tokens and id(r) not in first:
+                first[id(r)] = (len(steps), t1)
+        return worked
+
+    dec0, pre0 = eng.decode_steps, eng.prefills
+    torch.cuda.reset_peak_memory_stats()
+    moe_gmm.launches = decode_attn.launches = 0
+    t0 = time.perf_counter()
+    serve_stream(timed_step, [(eng, reqs)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"moe_gmm": moe_gmm.launches,
+                "decode_attn": decode_attn.launches}
+    calls = {"decode_steps": eng.decode_steps - dec0,
+             "prefill_calls": eng.prefills - pre0}
+    pure = [s for s in steps if s[1] == 0 and s[2] and s[3] > 0]
+    with_prefill = [s for s in steps if s[1] > 0]
+    ttft_steps = [first[id(r)][0] - submitted[id(r)][0] for r in reqs]
+    ttft_ms = [(first[id(r)][1] - submitted[id(r)][1]) * 1e3 for r in reqs]
+    total = sum(len(r.out_tokens) for r in reqs)
+    pure_ms = sum(s[0] for s in pure)
+    out = {"requests": len(reqs), "tokens": total, "wall_s": wall,
+           "tok_per_s": total / wall, **calls, "engine_steps": len(steps),
+           "decode_tok_per_s": (sum(s[3] for s in pure) / (pure_ms / 1e3)
+                                if pure else None),
+           **_percentiles([s[0] for s in pure], "step_ms"),
+           **_percentiles([s[0] for s in with_prefill], "prefill_step_ms"),
+           "ttft_steps": ttft_steps, "ttft_ms": ttft_ms,
+           **_percentiles(ttft_steps, "ttft_steps"),
+           **_percentiles(ttft_ms, "ttft_ms"),
+           "max_memory_allocated_GB": torch.cuda.max_memory_allocated() / 1e9}
+    return launches, calls, out
+
+
+def _check_launches(phase, launches, calls):
+    want = {"decode_attn": calls["decode_steps"] * N_LAYERS,
+            "moe_gmm": (calls["decode_steps"] + calls["prefill_calls"])
+            * N_LAYERS}
+    require(launches == want, phase,
+            f"launch counts {launches} != expected {want}")
+
+
+def _finite_decode(phase, eng, params):
+    """Logits of one more decode over the served cache (every row frozen,
+    so the cache is left as it is): finite, of the padded-vocab width."""
+    import torch
+    frozen = torch.zeros(SLOTS, dtype=torch.bool, device=eng.device)
+    logits, _ = eng.model.decode_step(params, eng.tokens, eng.cache, frozen)
+    finite = bool(torch.isfinite(logits).all())
+    require(finite and tuple(logits.shape) == (SLOTS, 1,
+                                               eng.model.padded_vocab),
+            phase, f"decode logits {tuple(logits.shape)} finite={finite}")
+    return finite
 
 
 def phase_serve():
-    import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.decode_attn import decode_attn
-    from repro_torch.kernels.moe_gmm import moe_gmm
     from repro_torch.models import Model
-    from repro_torch.serving import ContinuousEngine, EngineConfig, serve_stream
+    from repro_torch.serving import ContinuousEngine, EngineConfig
 
     cfg = dataclasses.replace(get_config("phi3.5-moe-42b-a6.6b"),
                               n_layers=N_LAYERS)
@@ -276,65 +400,87 @@ def phase_serve():
     torch.cuda.synchronize()
 
     reqs = _stream(cfg, 10, 64, 200, 16, 64, seed=0)
-    steps = []
-    dec0, pre0 = eng.decode_steps, eng.prefills
-
-    def timed_step():
-        pre, active = eng.prefills, eng.num_active
-        t = time.perf_counter()
-        worked = eng.step()
-        torch.cuda.synchronize()
-        steps.append((time.perf_counter() - t, eng.prefills - pre,
-                      eng.num_active, active))
-        return worked
-
-    torch.cuda.reset_peak_memory_stats()
-    moe_gmm.launches = decode_attn.launches = 0
-    t0 = time.perf_counter()
-    serve_stream(timed_step, [(eng, reqs)])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"moe_gmm": moe_gmm.launches,
-                "decode_attn": decode_attn.launches}
-    decodes, prefills = eng.decode_steps - dec0, eng.prefills - pre0
-    peak = torch.cuda.max_memory_allocated()
-
+    launches, calls, numbers = _serve_run(eng, reqs)
     complete = all(len(r.out_tokens) == r.max_new_tokens for r in reqs)
     require(complete, "serve", "a request did not get all its tokens")
-    want = {"decode_attn": decodes * N_LAYERS,
-            "moe_gmm": (decodes + prefills) * N_LAYERS}
-    require(launches == want, "serve",
-            f"launch counts {launches} != expected {want}")
-    # Logits of one more decode over the served cache (every row frozen)
-    # and of one prefill: finite, of the padded-vocab width.
-    frozen = torch.zeros(SLOTS, dtype=torch.bool, device="cuda")
-    logits, _ = eng.model.decode_step(params, eng.tokens, eng.cache, frozen)
-    finite = bool(torch.isfinite(logits).all())
-    require(finite and tuple(logits.shape) == (SLOTS, 1, model.padded_vocab),
-            "serve", f"decode logits {tuple(logits.shape)} finite={finite}")
-
-    pure = [s for s in steps if s[1] == 0 and s[3] > 0]
-    step_ms = np.array([s[0] * 1e3 for s in pure])
-    dec_tokens = sum(s[3] for s in pure)
-    total = sum(len(r.out_tokens) for r in reqs)
+    _check_launches("serve", launches, calls)
+    finite = _finite_decode("serve", eng, params)
     prefill_ms = _prefill_ms(model.with_kernels(), params, eng.cache_cap)
-    out = {
-        "arch": cfg.arch_id, "n_layers": N_LAYERS,
-        "depth_cut": "8 of 32 layers, every published width",
-        "dtype": cfg.dtype, "weights_GB": weight_bytes / 1e9,
-        "init_s": init_s, "slots": SLOTS, "cache_cap": CACHE_CAP,
-        "requests": len(reqs), "tokens": total, "wall_s": wall,
-        "tok_per_s": total / wall, "decode_steps": decodes,
-        "prefills": prefills, "pure_decode_steps": len(pure),
-        "decode_tok_per_s": dec_tokens / (step_ms.sum() / 1e3),
-        "step_ms_mean": float(step_ms.mean()),
-        "step_ms_p50": float(np.percentile(step_ms, 50)),
-        "step_ms_p95": float(np.percentile(step_ms, 95)),
-        "prefill_ms": prefill_ms, "launches": launches,
-        "max_memory_allocated_GB": peak / 1e9, "logits_finite": finite,
-    }
-    emit("serve", ok=True, **out)
+    emit("serve", ok=True, arch=cfg.arch_id, n_layers=N_LAYERS,
+         depth_cut="8 of 32 layers, every published width",
+         dtype=cfg.dtype, weights_GB=weight_bytes / 1e9, init_s=init_s,
+         slots=SLOTS, cache_cap=CACHE_CAP, admission="one-shot",
+         **numbers, prefill_ms=prefill_ms, launches=launches,
+         logits_finite=finite)
     return model, params, eng, launches
+
+
+def phase_serve_chunked(model, params):
+    """The serve phase's model and stream with chunks of 64 tokens: (a)
+    serialised, (b) a pool of 4 under a budget of 136 tokens per step."""
+    import torch
+    from repro_torch.serving import ContinuousEngine, EngineConfig
+    cfg = model.cfg
+    runs = {"serialised": EngineConfig(kernels=True, prefill_chunk=64),
+            "pool4_budget136": EngineConfig(kernels=True, prefill_chunk=64,
+                                            prefill_pool=4,
+                                            step_token_budget=136)}
+    streams, total = {}, {"moe_gmm": 0, "decode_attn": 0}
+    for name, config in runs.items():
+        eng = ContinuousEngine(model, params, batch_slots=SLOTS,
+                               cache_cap=CACHE_CAP, config=config)
+        eng.serve(_stream(cfg, 1, 128, 128, 2, 2, seed=2))    # warm-up
+        torch.cuda.synchronize()
+        reqs = _stream(cfg, 10, 64, 200, 16, 64, seed=0)
+        launches, calls, numbers = _serve_run(eng, reqs)
+        phase = f"serve_chunked[{name}]"
+        require(all(len(r.out_tokens) == r.max_new_tokens for r in reqs),
+                phase, "a request did not get all its tokens")
+        require(eng.num_pending == 0, phase,
+                f"{eng.num_pending} prefills left in flight")
+        _check_launches(phase, launches, calls)
+        finite = _finite_decode(phase, eng, params)
+        streams[name] = [list(r.out_tokens) for r in reqs]
+        for k in total:
+            total[k] += launches[k]
+        emit("serve_chunked", ok=True, run=name, prefill_chunk=64,
+             prefill_pool=config.prefill_pool,
+             step_token_budget=config.step_token_budget, **numbers,
+             chunk_ms=_chunk_ms(eng, params), launches=launches,
+             logits_finite=finite)
+    same = streams["serialised"] == streams["pool4_budget136"]
+    emit("serve_chunked", identical=same)
+    require(same, "serve_chunked",
+            "pooled streams differ from the serialised ones")
+    return total
+
+
+def _chunk_ms(eng, params):
+    """Host ms of one 64-token chunk call (synchronised) into slot 0 of the
+    engine's cache after its run: the first chunk of a prompt and a
+    continuation at offset 192 (the last chunk of a 256-token prompt);
+    best of three each. Launch counters are left as they were."""
+    import torch
+    from repro_torch.kernels.decode_attn import decode_attn
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    counts = (moe_gmm.launches, decode_attn.launches)
+    toks = torch.randint(1, eng.model.cfg.vocab, (1, 64), device=eng.device)
+    out = {}
+    for name, first, fill in (("first", True, 0),
+                              ("continuation_at_192", False, 192)):
+        best = math.inf
+        for _ in range(3):
+            eng.cache["len"][0] = fill
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            eng.model.prefill_chunk_slot(params, {"tokens": toks}, eng.cache,
+                                         0, first=first, cap=CACHE_CAP)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t)
+        out[name] = best * 1e3
+    eng.cache["len"][0] = 0
+    moe_gmm.launches, decode_attn.launches = counts
+    return out
 
 
 def _prefill_ms(model, params, cap):
@@ -466,22 +612,13 @@ def phase_timing(model, params, eng, launches, errs):
     return rows
 
 
-def phase_profile(eng, steps: int = 10):
-    """Decode steps as the engine runs them (every row frozen, so the served
-    cache is left as it is): step, argmax, copy of the tokens to the host.
-    Timed once plain and once under ``torch.profiler``; the idle share is
-    one minus the device kernels' busy time over the plain step time (the
-    profiler slows the host)."""
+def _profile(path: str, step, steps: int) -> None:
+    """``step`` run ``steps`` times, timed once plain and once under
+    ``torch.profiler``; the idle share is one minus the device kernels'
+    busy time over the plain step time (the profiler slows the host)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    mask = torch.zeros(SLOTS, dtype=torch.bool, device="cuda")
-    vocab = eng.model.cfg.vocab
-
-    def step():
-        logits, _ = eng.model.decode_step(eng.params, eng.tokens, eng.cache,
-                                          mask)
-        torch.argmax(logits[:, :, :vocab], dim=-1).cpu()
 
     def run():
         torch.cuda.synchronize()
@@ -502,13 +639,39 @@ def phase_profile(eng, steps: int = 10):
                if e.device_type == DeviceType.CUDA]
     busy = sum(k[1] for k in kernels)
     kernels.sort(key=lambda k: -k[1])
-    emit("profile", steps=steps, step_ms=plain_ms,
+    emit("profile", path=path, steps=steps, step_ms=plain_ms,
          step_ms_profiled=profiled_ms,
          device_busy_ms_per_step=busy if kernels else None,
          device_idle_share=(1 - busy / plain_ms) if kernels else None,
          device_kernels_per_step=sum(k[2] for k in kernels),
          top=[{"name": n[:70], "ms_per_step": t, "calls_per_step": c}
               for n, t, c in kernels[:12]])
+
+
+def phase_profile(eng, steps: int = 10):
+    """Decode steps as the engine runs them (every row frozen, so the served
+    cache is left as it is): step, argmax, copy of the tokens to the host.
+    Then the first 64-token chunk of a prompt into slot 0, with the argmax
+    of its last position copied to the host, as admission does."""
+    import torch
+    mask = torch.zeros(SLOTS, dtype=torch.bool, device=eng.device)
+    vocab = eng.model.cfg.vocab
+
+    def decode():
+        logits, _ = eng.model.decode_step(eng.params, eng.tokens, eng.cache,
+                                          mask)
+        torch.argmax(logits[:, :, :vocab], dim=-1).cpu()
+
+    toks = torch.randint(1, vocab, (1, 64), device=eng.device)
+
+    def chunk():
+        logits, _ = eng.model.prefill_chunk_slot(
+            eng.params, {"tokens": toks}, eng.cache, 0, first=True,
+            cap=CACHE_CAP)
+        int(torch.argmax(logits[0, -1, :vocab]))
+
+    _profile("decode_step", decode, steps)
+    _profile("chunk64_first", chunk, steps)
 
 
 def main() -> int:
@@ -522,6 +685,8 @@ def main() -> int:
     errs = phase_parity()
     phase_reference()
     model, params, eng, launches = phase_serve()
+    chunked = phase_serve_chunked(model, params)
+    launches = {k: launches[k] + chunked[k] for k in launches}
     rows = phase_timing(model, params, eng, launches, errs)
     phase_profile(eng)
     import torch

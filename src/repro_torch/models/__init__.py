@@ -3,7 +3,9 @@
 from .layers import KernelConfig
 from .model import Model
 from .transformer import (Segment, forward, init_cache, init_params,
-                          merge_cache_slot, padded_vocab, segments_of)
+                          merge_cache_slot, padded_vocab, segments_of,
+                          slice_cache_slot)
 
 __all__ = ["KernelConfig", "Model", "Segment", "forward", "init_cache",
-           "init_params", "merge_cache_slot", "padded_vocab", "segments_of"]
+           "init_params", "merge_cache_slot", "padded_vocab", "segments_of",
+           "slice_cache_slot"]

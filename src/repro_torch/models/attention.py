@@ -3,8 +3,7 @@
 
 Caches are fixed-capacity ``{"k", "v"}`` tensors of shape (B, cap, Hkv, D)
 and are updated IN PLACE (the reference returns a new cache instead). MLA,
-cross-attention, sliding-window rings and chunked continuation are not
-ported yet.
+cross-attention and sliding-window rings are not ported yet.
 """
 
 from __future__ import annotations
@@ -37,10 +36,16 @@ def attn_block(p, x, *, cfg, pos, cache, length=None, mode="prefill",
                kernels=None, row_mask=None):
     """GQA attention. x: (B, S, d); pos: (B, S) absolute positions.
 
-    mode "prefill": a fresh one-shot prefill; its keys are written to cache
-    positions [0, S). mode "decode": S == 1, the token is written at
-    ``min(length, cap - 1)`` and attends the first ``min(length + 1, cap)``
-    positions; through ``ops.decode_attn_auto`` when ``kernels`` is set.
+    mode "prefill" with ``length=None``: a fresh one-shot prefill; it
+    attends its own keys and writes them to cache positions [0, S).
+    mode "prefill" with ``length`` (a scalar or a (B,) vector of fill
+    levels): a chunked continuation; the chunk's keys land at positions
+    [length, length + S) of each row, and its queries attend the cached
+    prefix plus the causal part of the chunk (``causal_offset = length``,
+    ``valid_len = length + S``). The caller keeps length + S <= cap.
+    mode "decode": S == 1, the token is written at ``min(length, cap - 1)``
+    and attends the first ``min(length + 1, cap)`` positions; through
+    ``ops.decode_attn_auto`` when ``kernels`` is set.
     ``row_mask`` (decode, (B,) bool): rows where it is False attend with
     their token written, as in the reference, but keep their previous cache
     contents afterwards. Returns y (B, S, d); the cache is updated in place.
@@ -52,10 +57,7 @@ def attn_block(p, x, *, cfg, pos, cache, length=None, mode="prefill",
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
 
-    if mode == "prefill":
-        if length is not None:
-            raise NotImplementedError("chunked prefill continuation is not "
-                                      "ported")
+    if mode == "prefill" and length is None:
         cap = cache["k"].shape[1]
         if cap < s:
             raise ValueError(f"prefill of {s} tokens exceeds the cache "
@@ -63,6 +65,24 @@ def attn_block(p, x, *, cfg, pos, cache, length=None, mode="prefill",
         out = attention_core(q, k, v, causal_offset=0, valid_len=None)
         cache["k"][:, :s] = k
         cache["v"][:, :s] = v
+    elif mode == "prefill":
+        cap = cache["k"].shape[1]
+        if cap < s:
+            raise ValueError("chunked prefill continuation into a cache "
+                             f"smaller than the chunk ({cap} < {s})")
+        # Positions come from the device-side fill level: index writes, no
+        # host sync.
+        start = length.to(torch.long)
+        idx = start[..., None] + torch.arange(s, device=x.device)
+        if start.ndim == 1:                  # (B,) offsets: one per row
+            rows = torch.arange(b, device=x.device)[:, None]
+            cache["k"][rows, idx] = k.to(cache["k"].dtype)
+            cache["v"][rows, idx] = v.to(cache["v"].dtype)
+        else:
+            cache["k"][:, idx] = k.to(cache["k"].dtype)
+            cache["v"][:, idx] = v.to(cache["v"].dtype)
+        out = attention_core(q, cache["k"], cache["v"], causal_offset=start,
+                             valid_len=start + s)
     elif mode == "decode":
         cap = cache["k"].shape[1]
         slot = torch.clamp(length, max=cap - 1)

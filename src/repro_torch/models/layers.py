@@ -83,39 +83,70 @@ def attention_core(q, k, v, *, causal_offset, valid_len):
     """Plain GQA attention. q: (B,Sq,H,D); k,v: (B,Sk,Hkv,D), H = Hkv*G.
 
     ``causal_offset``: query i may attend key j iff j <= i + offset (None =
-    no causal mask). ``valid_len``: keys >= valid_len are masked; a scalar
-    or a (B,) vector of per-slot fill levels.
+    no causal mask). ``valid_len``: keys >= valid_len are masked (the
+    cache fill level). Each may be a scalar (a number or a 0-d tensor, one
+    value for the whole batch) or a (B,) vector of per-slot values.
 
-    The single-query form keeps the (Hkv, G) split; the multi-query form
-    repeats KV, as the reference does. The reference's flash (blocked)
-    form for Sq*Sk > 4M, sliding windows and fill levels at Sq > 1 are not
-    ported: the serving slice's prefills are fresh and at most the cache
-    size.
+    Three forms, as in the reference: a single query keeps the (Hkv, G)
+    split; several queries with per-row offsets or fill levels (a batch of
+    chunked continuations, each at its own offset) use the grouped form
+    with a materialised (B, Sq, Sk) mask; otherwise KV is repeated per head
+    and one (Sq, Sk) mask serves the batch. The reference's blocked flash
+    form, taken only above Sq*Sk = 4,194,304, and sliding windows are not
+    ported: no prefill or chunk on the serving path reaches that size.
     """
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    kj = torch.arange(sk, device=q.device)
+    dev = q.device
+    kj = torch.arange(sk, device=dev)
+
+    def mask_fn(qi, kj):
+        m = torch.ones(torch.broadcast_shapes(qi.shape, kj.shape),
+                       dtype=torch.bool, device=dev)
+        if causal_offset is not None:
+            m = m & (kj <= qi + causal_offset)
+        if valid_len is not None:
+            m = m & (kj < valid_len)
+        return m
+
+    def is_vec(a):
+        return a is not None and torch.as_tensor(a).ndim == 1
+
     if sq == 1:
         qg = q.reshape(b, sq, hkv, h // hkv, d)
-        mask = None
-        if valid_len is not None:
-            vl = torch.as_tensor(valid_len, device=q.device)
-            if vl.ndim == 1:       # per-slot fill levels: one row per slot
-                mask = kj[None, None, None, :] < vl[:, None, None, None]
-            else:
-                mask = (kj < vl)[None, None, None, :]
+        if valid_len is None:
+            mask = None
+        elif is_vec(valid_len):    # per-slot fill levels: one row per slot
+            vl = torch.as_tensor(valid_len, device=dev)
+            mask = kj[None, None, None, :] < vl[:, None, None, None]
+        else:
+            qi = torch.arange(sq, device=dev)[:, None]
+            mask = mask_fn(qi, kj[None, :])[None, None]
         return plain_attention(qg, k, v, mask).reshape(b, sq, h, d)
 
-    if valid_len is not None:
-        raise NotImplementedError("fill levels at Sq > 1 (chunked "
-                                  "continuation) are not ported")
+    if is_vec(causal_offset) or is_vec(valid_len):
+        # Per-row offsets / fill levels at Sq > 1: each row resumes its own
+        # chunked prefill; the (B, Sq, Sk) mask is materialised.
+        qi = torch.arange(sq, device=dev)[None, :, None]
+        kjb = kj[None, None, :]
+        m = torch.ones((b, sq, sk), dtype=torch.bool, device=dev)
+        if causal_offset is not None:
+            off = torch.as_tensor(causal_offset, device=dev).reshape(-1, 1, 1)
+            m = m & (kjb <= qi + off)
+        if valid_len is not None:
+            vl = torch.as_tensor(valid_len, device=dev).reshape(-1, 1, 1)
+            m = m & (kjb < vl)
+        out = plain_attention(q.reshape(b, sq, hkv, h // hkv, d), k, v,
+                              m[:, None])
+        return out.reshape(b, sq, h, d)
+
     k = _repeat_kv(k, h // hkv)
     v = _repeat_kv(v, h // hkv)
     qg = q[:, :, :, None, :]                       # (B,Sq,H,1,D): G=1 form
     mask = None
-    if causal_offset is not None:
-        qi = torch.arange(sq, device=q.device)[:, None]
-        mask = (kj[None, :] <= qi + causal_offset)[None, None]
+    if causal_offset is not None or valid_len is not None:
+        qi = torch.arange(sq, device=dev)[:, None]
+        mask = mask_fn(qi, kj[None, :])[None, None]
     return plain_attention(qg, k, v, mask).reshape(b, sq, h, d)
 
 

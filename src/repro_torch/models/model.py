@@ -55,12 +55,16 @@ class Model:
         return tf.padded_vocab(self.cfg)
 
     # -- serving -----------------------------------------------------------
-    def prefill(self, params, inputs, cache):
-        """inputs: {"tokens": (B, S)}. A fresh prefill from position 0; the
+    def prefill(self, params, inputs, cache, continuation: bool = False):
+        """inputs: {"tokens": (B, S)}. A fresh prefill from position 0, or
+        with ``continuation=True`` one that resumes at the cache's fill
+        level (a scalar, or a (B,) vector: each row at its own offset), so
+        a prompt absorbed chunk by chunk equals a one-shot prefill. The
         cache is written in place. Returns (logits, cache)."""
         logits, _ = tf.forward(params, self.cfg, tokens=inputs["tokens"],
                                mode="prefill", cache=cache,
-                               kernels=self.kernels)
+                               kernels=self.kernels,
+                               continuation=continuation)
         return logits, cache
 
     def decode_step(self, params, token, cache, row_mask=None):
@@ -74,10 +78,58 @@ class Model:
         return logits, cache
 
     def prefill_slot(self, params, inputs, cache, slot: int, *, cap: int):
-        """Prefill ONE request into row ``slot`` of a per-slot cache: run it
-        against a fresh zero batch-1 cache (no state of the slot's previous
-        occupant can leak), then copy that into the slot's row. Returns
-        (logits, cache)."""
-        sub = tf.init_cache(self.cfg, 1, cap, device=self.device)
-        logits, sub = self.prefill(params, inputs, sub)
-        return logits, tf.merge_cache_slot(cache, sub, slot)
+        """Prefill ONE request into row ``slot`` of a per-slot cache. The
+        row ends up as the reference's fresh zero batch-1 cache would after
+        its merge (no state of the slot's previous occupant can leak): the
+        whole prompt is the first and only chunk of ``prefill_chunk_slot``.
+        Returns (logits, cache)."""
+        return self.prefill_chunk_slot(params, inputs, cache, slot,
+                                       first=True, cap=cap)
+
+    def merge_slot(self, cache, sub, slot: int):
+        """Write a completed batch-1 prefill cache into row ``slot`` of the
+        shared per-slot cache (in place). Returns ``cache``."""
+        return tf.merge_cache_slot(cache, sub, slot)
+
+    def prefill_chunk_slot(self, params, inputs, cache, slot: int, *,
+                           first: bool, cap: int):
+        """One chunk of a chunked prefill for row ``slot`` of the shared
+        per-slot cache, run on a batch-1 view of that row
+        (``slice_cache_slot``), so the chunk writes the row and its fill
+        level in place and no merge copy follows.
+
+        ``first=True`` zeroes the row's K and V and runs a fresh prefill
+        from position 0: the row ends up as the reference's fresh zero
+        batch-1 cache would after the merge, so nothing of the slot's
+        previous occupant survives. Later chunks resume at the row's
+        recorded fill level. Between chunks the engine freezes the row
+        against decode writes (``decode_step(row_mask=...)``). ``cap`` is
+        the cache capacity, as in the reference (it sizes the fresh cache
+        there; here it must match the shared cache). Returns (logits,
+        cache)."""
+        have = cache["segments"][0][0]["k"].shape[2]
+        if cap != have:
+            raise ValueError(f"cap {cap} != the cache's capacity {have}")
+        sub = tf.slice_cache_slot(cache, slot)
+        if first:
+            for leaf in tf.cache_leaves(sub):
+                leaf.zero_()
+            sub["len"].zero_()
+        logits, _ = self.prefill(params, inputs, sub,
+                                 continuation=not first)
+        return logits, cache
+
+    def chunkable_len(self, cache_cap: int) -> int | None:
+        """Longest (padded) prompt absorbable in chunks: ``None`` when
+        unbounded. The port's layer kinds (G and E) keep global GQA caches,
+        which continue without bound; the reference's bounds for MLA and
+        encoder-decoder (0) and sliding-window rings (the ring size) come
+        with those layer kinds."""
+        return None
+
+    def supports_chunked_prefill(self, total_len: int,
+                                 cache_cap: int) -> bool:
+        """Whether a ``total_len``-token (padded) prompt may be absorbed in
+        chunks (see ``chunkable_len``)."""
+        lim = self.chunkable_len(cache_cap)
+        return lim is None or total_len <= lim

@@ -139,6 +139,23 @@ def merge_cache_slot(cache, sub, slot: int):
     return cache
 
 
+def cache_leaves(cache):
+    """Every K/V tensor of a cache (not ``len``)."""
+    return [t for seg in cache["segments"] for e in seg for t in e.values()]
+
+
+def slice_cache_slot(cache, slot: int):
+    """Batch-1 VIEW of row ``slot`` of a multi-slot cache, the inverse of
+    ``merge_cache_slot``: leaves (count, 1, cap, ...) and a 0-d ``len``,
+    all sharing storage with ``cache``. A prefill continuation run on the
+    view writes the slot's row and fill level in place, so no merge copy
+    follows (the reference returns a copy, continues it and merges it
+    back; the cache ends up the same)."""
+    segs = tuple(tuple({name: t[:, slot:slot + 1] for name, t in e.items()}
+                       for e in seg) for seg in cache["segments"])
+    return {"len": cache["len"][slot], "segments": segs}
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -160,10 +177,14 @@ def _apply_layer(kind, p, x, entry, *, cfg, kernels, mode, pos, length,
 
 
 def forward(params, cfg, *, tokens, mode, cache, kernels=None,
-            row_mask=None):
+            continuation=False, row_mask=None):
     """Run the decoder stack in "prefill" or "decode" mode.
 
-    prefill: tokens (B, S), a fresh prefill written from cache position 0.
+    prefill: tokens (B, S), a fresh prefill written from cache position 0;
+    with ``continuation=True`` it resumes at the fill level ``cache["len"]``
+    (a scalar, or a (B,) vector: each row at its own offset): positions
+    and cache writes start there and queries attend the cached prefix, so
+    a prompt absorbed in chunks equals a one-shot prefill.
     decode: tokens (B, 1) at per-slot positions ``cache["len"]``.
     ``row_mask`` (decode only, (B,) bool): rows where it is False keep their
     cache contents and length; their logits are computed all the same.
@@ -177,6 +198,10 @@ def forward(params, cfg, *, tokens, mode, cache, kernels=None,
         length = cache["len"]
         pos = (length[:, None].expand(b, s) if length.ndim == 1
                else length.expand(b, s))
+    elif continuation:
+        length = cache["len"]
+        pos = (length[..., None] + torch.arange(s, device=x.device)).expand(
+            b, s)
     else:
         length = None
         pos = torch.arange(s, device=x.device)[None].expand(b, s)

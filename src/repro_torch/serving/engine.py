@@ -1,35 +1,54 @@
 """Continuous-batching engine (port of ``ContinuousEngine`` and its helpers
-from ``repro/serving/engine.py``, one-shot admission only).
+from ``repro/serving/engine.py``).
 
 ``ContinuousEngine`` owns a request queue plus ``batch_slots`` decode slots
 over a shared per-slot KV cache (``init_cache(per_slot_len=True)``). Each
-step admits queued requests into free slots (a batch-1 prefill copied into
-the slot's cache row, ``Model.prefill_slot``), then decodes every slot once
-and evicts finished requests.
+step admits queued requests, then decodes every slot once and evicts
+finished requests. Admission is one-shot by default (a batch-1 prefill
+copied into the slot's cache row, ``Model.prefill_slot``).
+
+Chunked prefill (``EngineConfig(prefill_chunk=C)`` or a chunked
+``AdmissionPolicy``): a prompt is absorbed at most C tokens per engine step
+straight into its slot's row (``Model.prefill_chunk_slot``); between
+chunks the decode step freezes that row (``row_mask``). The policy's
+``select`` decides which due chunks run each step: decode always runs;
+``TokenBudgetAdmission`` feeds chunks from the leftover budget in FIFO
+order, ``EdfAdmission`` by earliest effective deadline.
+
+Prefill pool (``EngineConfig(prefill_pool=K)``): up to K chunked prefills
+in flight. Each step runs the picked chunks in the policy's order, each as
+its own batch-1 call (MoE capacity is per token group, so batching them
+would change the routing), then the decode with the pending slots masked,
+then the decode's bookkeeping, and last the first tokens of prompts that
+finished. The reference fuses the same sub-calls into one jitted program;
+here they run in sequence on the current stream.
 
 The reference's semantics are kept exactly, because greedy token streams
 are compared with it: prompts are left-padded with 0 to their bucket (pad
 tokens are not masked); vacant slots decode too, so their stale tokens take
 part in MoE routing and capacity at T = batch_slots (their cache rows and
 lengths stay frozen); and the current-token buffer is replaced wholesale by
-the argmax over all rows after each decode.
+the argmax over all rows after each decode. Chunk bookkeeping (offsets,
+padded tokens) stays on the host.
 
 The cache is updated in place (the reference donates it to a jitted step).
-Chunked prefill, the prefill pool, the monitor/replanner, replication,
-telemetry and fault tolerance are not ported yet.
+The monitor/replanner hooks, replication, telemetry and fault tolerance
+(``checkpoint``/``restore``/``requeue``) are not ported yet.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 from typing import Sequence
 
 import numpy as np
 import torch
 
 from ..models import Model
-from .config import EngineConfig
+from .config import EngineConfig, RequestSpec, ShedEvent
+from .events import RingBuffer
 
 __all__ = ["Request", "poisson_requests", "serve_stream", "ContinuousEngine"]
 
@@ -39,6 +58,11 @@ class Request:
     prompt: Sequence[int]
     max_new_tokens: int = 16
     arrival: float = 0.0                 # engine-step time of arrival
+    # Absolute deadline (engine-step time) for deadline-aware admission.
+    # None = stamped at submit from the engine's TenantSpec (math.inf when
+    # there is no TTFT target).
+    deadline: float | None = None
+    tenant: object = None                # opaque tenant id for the policy
     out_tokens: list = dataclasses.field(default_factory=list)
 
 
@@ -62,11 +86,12 @@ def serve_stream(step_fn, pools) -> None:
     """Arrival-clock driver. ``pools``: (engine, requests) pairs. Each tick
     submits every request whose ``arrival`` has passed (same-arrival
     requests in list order), runs one ``step_fn()``, and jumps the clock
-    over idle gaps when nothing is active but requests are still due."""
+    over idle gaps when nothing is active or pending but requests are still
+    due."""
     streams = [[eng, sorted(reqs, key=lambda r: r.arrival), 0]
                for eng, reqs in pools]
     t = 0.0
-    while any(i < len(p) or e.queue or e.num_active
+    while any(i < len(p) or e.queue or e.num_active or e.num_pending
               for e, p, i in streams):
         for s in streams:
             eng, pend, i = s
@@ -84,8 +109,10 @@ def serve_stream(step_fn, pools) -> None:
 class ContinuousEngine:
     """Continuous-batching scheduler over ``batch_slots`` decode slots.
 
-    The slot state machine lives on the host (``queue`` + ``slots``); the
-    device holds the shared cache and the (B, 1) current-token buffer.
+    The slot state machine lives on the host (``queue``, ``slots`` and the
+    in-flight chunked prefills); the device holds the shared cache and the
+    (B, 1) current-token buffer. ``prefills`` counts model prefill calls,
+    one-shot and chunk alike; ``decode_steps`` counts decode calls.
     """
 
     def __init__(self, model: Model, params, batch_slots: int,
@@ -99,21 +126,40 @@ class ContinuousEngine:
         self.batch_slots = batch_slots
         self.cache_cap = cache_cap
         self.admission = config.resolve_admission()
+        if len(config.tenants) > 1:
+            raise ValueError(
+                f"{type(self).__name__} hosts one tenant; config.tenants "
+                f"has {len(config.tenants)}")
+        self.tenant_spec = config.tenants[0] if config.tenants else None
         self.prefill_len = config.prefill_len
+        self.prefill_chunk = self.admission.chunk
+        self._pool_size = config.prefill_pool
         self.cache = model.init_cache(batch_slots, cache_cap,
                                       per_slot_len=True)
         self.tokens = torch.zeros((batch_slots, 1), dtype=torch.long,
                                   device=self.device)
         self.queue: collections.deque[Request] = collections.deque()
         self.slots: list[Request | None] = [None] * batch_slots
+        # In-flight chunked prefills, in arrival order: [req, slot,
+        # padded_toks, done]; ``done`` is the host-side chunk offset.
+        self._pending: list[list] = []
         self.decode_steps = 0
         self.prefills = 0
+        # Rejected submits under shed-mode admission, drop-oldest.
+        self.shed_events = RingBuffer(config.event_capacity)
 
     @property
     def num_active(self) -> int:
         return sum(r is not None for r in self.slots)
 
-    def submit(self, req: Request) -> None:
+    @property
+    def num_pending(self) -> int:
+        """In-flight chunked prefills (up to ``config.prefill_pool``)."""
+        return len(self._pending)
+
+    def submit(self, req: Request) -> ShedEvent | None:
+        """Queue ``req``, or under shed-mode admission reject it: the typed
+        ``ShedEvent`` is returned and appended to ``shed_events``."""
         # The final per-slot length is pad(prompt) + max_new_tokens - 1
         # (the last emitted token is never written back).
         p = self._bucket(len(req.prompt))
@@ -122,7 +168,29 @@ class ContinuousEngine:
             raise ValueError(
                 f"prompt + generation needs {need} cache slots, "
                 f"capacity is {self.cache_cap}")
+        if (self.prefill_chunk is not None
+                and not self.model.supports_chunked_prefill(
+                    p, self.cache_cap)):
+            raise ValueError(
+                f"{self.model.cfg.arch_id}: a {p}-token prefill cannot be "
+                "chunked — use prefill_chunk=None for this engine")
+        if req.deadline is None:
+            req.deadline = (self.tenant_spec.deadline(req.arrival)
+                            if self.tenant_spec is not None else math.inf)
+        if req.tenant is None and self.tenant_spec is not None:
+            req.tenant = self.tenant_spec.name
+        shed_reason = getattr(self.admission, "shed_reason", None)
+        if shed_reason is not None:
+            reason = shed_reason(self._queue_spec(req),
+                                 [self._queue_spec(r) for r in self.queue],
+                                 self.num_active + self.num_pending)
+            if reason is not None:
+                ev = ShedEvent(tenant=req.tenant, arrival=req.arrival,
+                               reason=reason, request=req)
+                self.shed_events.append(ev)
+                return ev
         self.queue.append(req)
+        return None
 
     def _bucket(self, n: int) -> int:
         if self.prefill_len is not None:
@@ -133,7 +201,66 @@ class ContinuousEngine:
         p = self.admission.pad(n)
         if p < n:
             raise ValueError(f"bucket policy shrank {n} to {p}")
-        return min(p, self.cache_cap)
+        p = min(p, self.cache_cap)
+        if self.prefill_chunk is not None:
+            # Clamp the pad to the longest chunkable prompt, so only
+            # prompts that are themselves too long are refused.
+            lim = self.model.chunkable_len(self.cache_cap)
+            if lim is not None and n <= lim:
+                p = min(p, lim)
+        return p
+
+    def _free_slot(self) -> int | None:
+        """First free slot not reserved by an in-flight prefill."""
+        reserved = {p[1] for p in self._pending}
+        for i, r in enumerate(self.slots):
+            if r is None and i not in reserved:
+                return i
+        return None
+
+    def _spec(self, r: Request, chunk: int) -> RequestSpec:
+        """The admission policy's view of one pending request."""
+        return RequestSpec(
+            chunk=int(chunk), prompt_len=len(r.prompt), arrival=r.arrival,
+            deadline=math.inf if r.deadline is None else r.deadline,
+            tenant=r.tenant)
+
+    def _queue_spec(self, r: Request) -> RequestSpec:
+        """The spec of a queued request: its first chunk (the whole padded
+        prompt under one-shot admission)."""
+        b = self._bucket(len(r.prompt))
+        return self._spec(r, min(self.prefill_chunk or b, b))
+
+    @staticmethod
+    def _check_selection(order, n: int) -> list[int]:
+        """A policy's select()/order() result: unique indices in range, or
+        ValueError (a buggy policy would run one chunk twice)."""
+        idx = [int(i) for i in order]
+        if len(set(idx)) != len(idx) or any(not 0 <= i < n for i in idx):
+            raise ValueError(
+                f"admission policy returned invalid indices {idx} for "
+                f"{n} pending requests (need unique ints in range)")
+        return idx
+
+    def _pop_queue(self) -> Request:
+        """Next queued request per the policy's queue discipline (FIFO for
+        the stock policies, earliest effective deadline for EDF)."""
+        if len(self.queue) > 1:
+            specs = [self._queue_spec(r) for r in self.queue]
+            order = self._check_selection(self.admission.order(specs),
+                                          len(specs))
+            if order:
+                r = self.queue[order[0]]
+                del self.queue[order[0]]
+                return r
+        return self.queue.popleft()
+
+    def _padded(self, r: Request) -> np.ndarray:
+        """(1, bucket) host tokens of ``r``'s prompt, left-padded with 0."""
+        p = self._bucket(len(r.prompt))
+        toks = np.zeros((1, p), np.int64)
+        toks[0, p - len(r.prompt):] = r.prompt
+        return toks
 
     def _finish_admission(self, r: Request, slot: int, logits) -> None:
         """Emit the first token and occupy the slot (unless already done)."""
@@ -145,22 +272,109 @@ class ContinuousEngine:
             self.tokens[slot, 0] = tok0
 
     def _admit(self) -> None:
-        """Drain the queue into free slots, one batch-1 prefill each."""
+        """Drain the queue into free slots, one batch-1 prefill each, in the
+        policy's queue order."""
         while self.queue and None in self.slots:
             slot = self.slots.index(None)
-            r = self.queue.popleft()
-            p = self._bucket(len(r.prompt))
-            toks = np.zeros((1, p), np.int64)
-            toks[0, p - len(r.prompt):] = r.prompt      # left-pad with 0
+            r = self._pop_queue()
+            toks = torch.from_numpy(self._padded(r)).to(self.device)
             logits, self.cache = self.model.prefill_slot(
-                self.params, {"tokens": torch.from_numpy(toks).to(self.device)},
-                self.cache, slot, cap=self.cache_cap)
+                self.params, {"tokens": toks}, self.cache, slot,
+                cap=self.cache_cap)
             self.prefills += 1
             self._finish_admission(r, slot, logits)
 
+    def _admit_tick(self) -> bool:
+        """One tick of admission work. Returns True iff chunked prefill
+        progressed (one-shot admissions show in ``num_active``)."""
+        if self.prefill_chunk is None:
+            self._admit()
+            return False
+        if self._pool_size > 1:
+            return self._pool_tick(fuse_decode=False)
+        return self._prefill_tick()
+
+    def _start_pending(self, slot: int) -> None:
+        """Pop the policy's next queued request into a reserved slot as an
+        in-flight prefill."""
+        r = self._pop_queue()
+        self._pending.append([r, slot, self._padded(r), 0])
+
+    def _run_chunk(self, p: list, c: int):
+        """Run the next ``c`` tokens of pending prefill ``p`` into its slot
+        row; returns the chunk's logits. The first chunk starts the row from
+        zero; later ones resume at its fill level."""
+        r, slot, toks, done = p
+        chunk = torch.from_numpy(toks[:, done:done + c]).to(self.device)
+        logits, self.cache = self.model.prefill_chunk_slot(
+            self.params, {"tokens": chunk}, self.cache, slot,
+            first=done == 0, cap=self.cache_cap)
+        self.prefills += 1
+        p[3] = done + c
+        return logits
+
+    def _prefill_tick(self) -> bool:
+        """Serialised chunked admission (``prefill_pool=1``): start or
+        advance the single in-flight prefill by at most one chunk, as the
+        admission policy allows."""
+        if not self._pending:
+            slot = self._free_slot()
+            if not self.queue or slot is None:
+                return False
+            self._start_pending(slot)
+        p = self._pending[0]
+        c = min(self.prefill_chunk, p[2].shape[1] - p[3])
+        # Decode always runs and eats num_active tokens of any budget; the
+        # chunk runs only when the policy admits it.
+        if not self.admission.select(self.num_active, [self._spec(p[0], c)]):
+            return False
+        logits = self._run_chunk(p, c)
+        if p[3] >= p[2].shape[1]:
+            self._pending.pop(0)
+            self._finish_admission(p[0], p[1], logits)
+        return True
+
+    def _pool_tick(self, fuse_decode: bool) -> bool:
+        """Pooled chunked admission (``prefill_pool=K``): top the pool up in
+        the policy's queue order, run every picked chunk in the policy's run
+        order and, when ``fuse_decode`` is set and slots are occupied, the
+        decode over every slot (pending ones masked).
+
+        Order matters: ``_postdecode`` replaces ``self.tokens`` wholesale
+        with this step's argmax, so it runs before ``_finish_admission``
+        writes a newly admitted slot's first token."""
+        while len(self._pending) < self._pool_size and self.queue:
+            slot = self._free_slot()
+            if slot is None:
+                break
+            self._start_pending(slot)
+        chunks = [min(self.prefill_chunk, p[2].shape[1] - p[3])
+                  for p in self._pending]
+        specs = [self._spec(p[0], c) for p, c in zip(self._pending, chunks)]
+        picked = self._check_selection(
+            self.admission.select(self.num_active, specs), len(specs))
+        decode = fuse_decode and self.num_active > 0
+        if not picked and not decode:
+            return False
+        finished = []
+        for i in picked:
+            p = self._pending[i]
+            logits = self._run_chunk(p, chunks[i])
+            if p[3] >= p[2].shape[1]:
+                finished.append((p, logits))
+        if decode:
+            logits = self._decode_all()
+            self.decode_steps += 1
+            self._postdecode(logits)
+        for p, logits in finished:
+            self._pending.remove(p)
+            self._finish_admission(p[0], p[1], logits)
+        return True
+
     def _decode_all(self):
-        """One fixed-shape decode over every slot; vacant rows keep their
-        cache state and fill level (``row_mask``)."""
+        """One fixed-shape decode over every slot; vacant rows and rows of
+        in-flight prefills keep their cache state and fill level
+        (``row_mask``)."""
         mask = torch.tensor([r is not None for r in self.slots],
                             device=self.device)
         logits, self.cache = self.model.decode_step(
@@ -180,11 +394,18 @@ class ContinuousEngine:
                 self.slots[i] = None
 
     def step(self) -> bool:
-        """Admit whole prefills, then decode all slots once. Returns False
-        when idle."""
-        self._admit()
+        """Admit (whole prefills, or policy-admitted chunks), then decode
+        all slots once. Returns False when idle. (The reference wraps
+        ``_step_impl`` in telemetry spans here; the port has no telemetry
+        yet.)"""
+        return self._step_impl()
+
+    def _step_impl(self) -> bool:
+        if self._pool_size > 1:
+            return self._pool_tick(fuse_decode=True)
+        worked = self._admit_tick()
         if self.num_active == 0:
-            return False
+            return worked
         logits = self._decode_all()
         self.decode_steps += 1
         self._postdecode(logits)

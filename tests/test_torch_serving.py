@@ -19,10 +19,12 @@ import jax  # noqa: E402
 
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.models import Model as JaxModel  # noqa: E402
+from repro import serving as jax_serving  # noqa: E402
 from repro.serving import ContinuousEngine as JaxEngine  # noqa: E402
 from repro.serving import EngineConfig as JaxEngineConfig  # noqa: E402
 from repro.serving import poisson_requests as jax_poisson  # noqa: E402
 from repro_torch import bridge  # noqa: E402
+from repro_torch import serving as torch_serving  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.serving import (ContinuousEngine, EngineConfig,  # noqa: E402
@@ -71,6 +73,77 @@ def test_greedy_streams_match_jax_engine(weights, bucket_policy):
     assert all(len(r.out_tokens) == r.max_new_tokens for r in got)
 
 
+# Chunked engine configurations, built in either package (``m`` is
+# repro.serving or repro_torch.serving): serialised and pooled, with and
+# without a step budget (as the reference's
+# test_pooled_prefill_token_identity), EDF with a TTFT tenant, and EDF with
+# shedding on a burst.
+CHUNKED = {
+    "chunk4_pool1": lambda m: dict(prefill_chunk=4),
+    "chunk4_pool3": lambda m: dict(prefill_chunk=4, prefill_pool=3),
+    "chunk4_budget9_pool1": lambda m: dict(prefill_chunk=4,
+                                           step_token_budget=9),
+    "chunk4_budget9_pool3": lambda m: dict(prefill_chunk=4,
+                                           step_token_budget=9,
+                                           prefill_pool=3),
+    "edf_ttft": lambda m: dict(
+        admission=m.EdfAdmission(chunk=4, budget=9), prefill_pool=2,
+        tenants=(m.TenantSpec(name="t0", ttft_p95=6.0),)),
+    "edf_shed_burst": lambda m: dict(
+        admission=m.EdfAdmission(chunk=4, budget=9, shed=True, queue_cap=3),
+        tenants=(m.TenantSpec(name="t0", ttft_p95=2.0),)),
+}
+
+
+def _chunked_stream(m, burst: bool):
+    """Ragged prompts (5-12 tokens: one to three chunks of 4) with bursty
+    arrivals; one request carries a tight explicit deadline, so EDF
+    reorders. ``burst``: ten requests at once, more than the queue cap."""
+    rng = np.random.default_rng(0)
+    arrivals = ([0.0] * 10 if burst
+                else [0.0, 0.0, 1.0, 1.0, 2.0, 5.0, 6.0])
+    reqs = []
+    for t in arrivals:
+        n = int(rng.integers(5, 13))
+        reqs.append(m.Request(prompt=[int(x) for x in rng.integers(1, 500, n)],
+                              max_new_tokens=int(rng.integers(3, 7)),
+                              arrival=t))
+    reqs[4].deadline = 3.0
+    return reqs
+
+
+@pytest.mark.parametrize("case", sorted(CHUNKED))
+def test_chunked_streams_match_jax_engine(weights, case):
+    """Chunked, pooled, budgeted and EDF admission give the JAX engine's
+    greedy streams byte for byte (kernels=True on both sides), the same
+    number of decode steps, and the same shed events."""
+    burst = case == "edf_shed_burst"
+    cfg_j = jax_get_config(ARCH).reduced()
+    eng_j = JaxEngine(JaxModel(cfg_j), jax.tree.map(jax.numpy.asarray, weights),
+                      batch_slots=3, cache_cap=32,
+                      config=JaxEngineConfig(kernels=True,
+                                             **CHUNKED[case](jax_serving)))
+    eng_t = ContinuousEngine(
+        Model(get_config(ARCH).reduced(), device="cpu"),
+        bridge.to_torch(weights), batch_slots=3, cache_cap=32,
+        config=EngineConfig(kernels=True, **CHUNKED[case](torch_serving)))
+    want = eng_j.serve(_chunked_stream(jax_serving, burst))
+    got = eng_t.serve(_chunked_stream(torch_serving, burst))
+    assert _streams(got) == _streams(want)
+    assert eng_t.decode_steps == eng_j.decode_steps
+    assert eng_t.num_pending == 0 and not eng_t.queue
+
+    def sheds(eng):
+        return [(e.tenant, e.arrival, e.reason) for e in eng.shed_events]
+
+    assert sheds(eng_t) == sheds(eng_j)
+    triggers = {e.reason.split(":")[0] for e in eng_t.shed_events}
+    assert triggers == ({"deadline", "queue_cap"} if burst else set())
+    shed = {id(e.request) for e in eng_t.shed_events}
+    assert all(len(r.out_tokens) == r.max_new_tokens
+               for r in got if id(r) not in shed)
+
+
 def test_bridge_round_trip_is_bit_exact(weights):
     """params and a per-slot cache survive numpy -> torch -> numpy bit for
     bit, with every leaf path kept; bf16 leaves cross as bit patterns."""
@@ -101,6 +174,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "import repro_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    repro_torch.__path__, 'repro_torch.')]\n"
+        "assert 'repro_torch.serving.events' in names, names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "sys.path.insert(0, %r)\n"
@@ -113,7 +187,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15       # every submodule walked
+    assert int(out.stdout.split()[-1]) >= 16       # every submodule walked
 
 
 def test_default_device_is_the_card():
@@ -131,13 +205,21 @@ def test_default_device_is_the_card():
     ContinuousEngine(model, model.init(0), batch_slots=2, cache_cap=16)
 
 
-def test_launch_serve_on_cpu(capsys):
+@pytest.mark.parametrize("extra", [
+    [],
+    ["--prefill-chunk", "4", "--prefill-pool", "2", "--step-budget", "9"],
+    ["--prefill-chunk", "4", "--step-budget", "9", "--ttft-slo", "12",
+     "--tpot-slo", "2"],
+], ids=["one_shot", "chunked_pool_budget", "ttft_slo"])
+def test_launch_serve_on_cpu(capsys, extra):
     from repro_torch.launch import serve
     assert serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
                        "--num-requests", "3", "--batch", "2",
                        "--cache-cap", "32", "--max-new-tokens", "4",
-                       "--kernels"]) == 0
-    assert "tokens in" in capsys.readouterr().out
+                       "--kernels"] + extra) == 0
+    out = capsys.readouterr().out
+    assert "tokens in" in out
+    assert ("EDF admission" in out) == ("--ttft-slo" in extra)
 
 
 @pytest.mark.parametrize("policy", ["pow2", "exact", "step:8"])
