@@ -18,7 +18,11 @@ non-zero:
    three chunked ones (chunks of 8; chunks of 8 with a budget of 12 and a
    pool of 3; EDF over the same chunk and budget with a TTFT tenant);
    kernel and plain streams must be identical, and the chunked streams
-   (pooled, budgeted, EDF) must equal the serialised chunked ones.
+   (pooled, budgeted, EDF) must equal the serialised chunked ones. Then
+   two tenants in ``ColocatedContinuousEngine`` and three in
+   ``MultiTenantContinuousEngine`` (chunks of 8), with and without a
+   forced re-plan: kernel streams equal plain ones, re-planned streams
+   equal static ones, at least one placement adopted.
 5. serve: full-width phi3.5-MoE cut to 8 layers (bf16, seeded random
    weights) in ``ContinuousEngine(kernels=True)`` serving a Poisson stream
    with one-shot admission; every request gets all its tokens, logits are
@@ -40,6 +44,18 @@ non-zero:
 8. profile: ten decode steps of the served model, then ten 64-token
    chunk calls, under ``torch.profiler``: host wall time against device
    busy time (the idle share) and the kernels that take the device time.
+9. serve_colocated: the serve phase's model as tenant A beside tenants B
+   and C (seeds 1 and 2, ~21.3 GB each), each with its own stream: (a)
+   ``ColocatedContinuousEngine`` with the planner's pairing, (b) the same
+   with a forced re-planner, (c) ``MultiTenantContinuousEngine`` over
+   three tenants with chunks of 64, without and with a forced re-group.
+   Gates: re-planned and re-grouped streams equal the static runs', at
+   least one adoption each, exact launch counts, each adoption's
+   transient memory within one (16, 4096, 6400) expert slab. Lockstep
+   step ms, tok/s per tenant, re-plan step ms, the host ms of planning and
+   of observing the counts, and each adoption's ms and memory are printed.
+   Then the profile of a 2-tenant lockstep decode step, with and without
+   the routing counts, and the two timed in alternated rounds.
 
 Then a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
 Nothing of JAX is imported.
@@ -286,6 +302,63 @@ def phase_reference():
             f"kernel-path greedy streams differ from the plain path's: {same}")
     require(all(as_serial.values()), "reference",
             f"chunked streams differ from the serialised ones: {as_serial}")
+    _reference_colocated(cfg, model)
+
+
+def _reference_colocated(cfg, model):
+    """Two and three tenants of the reduced model (weights from seeds 0, 1,
+    2) with chunked admission (chunks of 8), each run with and without a
+    re-planner forced to adopt every changed placement
+    (``OnlineReplanner(interval=3, threshold=-1.0, warmup=1)``), through
+    the kernels and through the plain path. Gates: kernel streams equal
+    plain ones, re-planned streams equal the run without, and each forced
+    run applied at least one placement."""
+    from repro_torch.core import AuroraPlanner, homogeneous_cluster
+    from repro_torch.serving import (ColocatedContinuousEngine, EngineConfig,
+                                     MultiTenantContinuousEngine,
+                                     OnlineReplanner)
+    planner = AuroraPlanner(homogeneous_cluster(cfg.moe.n_experts))
+    streams, applied = {}, {}
+    for tenants in (2, 3):
+        for kernels in (True, False):
+            for forced in (False, True):
+                replan = (OnlineReplanner(planner, interval=3, threshold=-1.0,
+                                          warmup=1) if forced else None)
+                config = EngineConfig(kernels=kernels, prefill_chunk=8)
+                params = [model.init(seed) for seed in range(tenants)]
+                reqs = [_stream(cfg, 6, 5, 20, 4, 12, seed=1 + t)
+                        for t in range(tenants)]
+                if tenants == 2:
+                    eng = ColocatedContinuousEngine(
+                        model, model, *params, batch_slots=3, cache_cap=64,
+                        config=config, replan=replan)
+                    eng.serve(*reqs)
+                else:
+                    eng = MultiTenantContinuousEngine(
+                        [model] * 3, params, batch_slots=3, cache_cap=64,
+                        config=config, replan=replan)
+                    eng.serve(reqs)
+                key = (tenants, kernels, forced)
+                streams[key] = [[list(r.out_tokens) for r in rs]
+                                for rs in reqs]
+                applied[key] = sum(e.applied for e in eng.replan_events)
+    same = {f"{n}_tenants_{'replan' if f else 'static'}":
+            streams[n, True, f] == streams[n, False, f]
+            for n in (2, 3) for f in (False, True)}
+    replanned = {f"{n}_tenants_{'kernels' if k else 'plain'}":
+                 streams[n, k, True] == streams[n, k, False]
+                 for n in (2, 3) for k in (True, False)}
+    adopted = {f"{n}_tenants_{'kernels' if k else 'plain'}":
+               applied[n, k, True] for n in (2, 3) for k in (True, False)}
+    emit("reference", engines="colocated (2 tenants), multi-tenant (3)",
+         prefill_chunk=8, kernel_equals_plain=same,
+         replanned_equals_static=replanned, applied_events=adopted)
+    require(all(same.values()), "reference",
+            f"colocated kernel streams differ from the plain ones: {same}")
+    require(all(replanned.values()), "reference",
+            f"re-planned streams differ from the static ones: {replanned}")
+    require(all(adopted.values()), "reference",
+            f"a forced re-planner adopted nothing: {adopted}")
 
 
 def _percentiles(xs, prefix: str) -> dict:
@@ -298,48 +371,62 @@ def _percentiles(xs, prefix: str) -> dict:
             f"{prefix}_p95": float(np.percentile(a, 95))}
 
 
-def _serve_run(eng, reqs):
-    """Serve ``reqs`` through ``serve_stream``, each engine step timed on
+def _serve_run(eng, pools):
+    """Serve ``pools`` ((slot pool, requests) pairs: the engine itself for a
+    ``ContinuousEngine``, one pool per tenant for the colocated engines)
+    through ``serve_stream`` with ``eng.step``, each engine step timed on
     the host clock and synchronised. The kernels' launch counters are set
     to 0 just before the run and read just after. TTFT of a request: from
     the start of the tick it was submitted in to the end of the step that
     emitted its first token, in ms and in engine steps (that step
-    included). Returns (launches, calls, numbers), where calls are the
-    engine's decode steps and prefill calls (one-shot or chunk)."""
+    included). Steps in which a re-planner made a decision are timed
+    apart (``replan_step_ms``). Returns (launches, calls, numbers), where
+    calls are the engine's decode steps (lockstep steps decode every
+    tenant), its prefill calls (one-shot or chunk) and its tenants."""
     import torch
     from repro_torch.kernels.decode_attn import decode_attn
     from repro_torch.kernels.moe_gmm import moe_gmm
     from repro_torch.serving import serve_stream
     steps, submitted, first = [], {}, {}
+    reqs = [r for _, rs in pools for r in rs]
+    replan = getattr(eng, "replan", None)
+
+    def state():
+        return (sum(p.prefills for p, _ in pools), eng.decode_steps,
+                sum(p.num_active for p, _ in pools),
+                len(replan.events) if replan is not None else 0)
 
     def timed_step():
         t = time.perf_counter()
-        for r in eng.queue:
-            submitted.setdefault(id(r), (len(steps), t))
-        pre, dec, active = eng.prefills, eng.decode_steps, eng.num_active
+        for pool, _ in pools:
+            for r in pool.queue:
+                submitted.setdefault(id(r), (len(steps), t))
+        before = state()
         worked = eng.step()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        steps.append(((t1 - t) * 1e3, eng.prefills - pre,
-                      eng.decode_steps - dec, active))
+        after = state()
+        steps.append(((t1 - t) * 1e3, after[0] - before[0],
+                      after[1] - before[1], before[2], after[3] > before[3]))
         for r in reqs:
             if r.out_tokens and id(r) not in first:
                 first[id(r)] = (len(steps), t1)
         return worked
 
-    dec0, pre0 = eng.decode_steps, eng.prefills
+    pre0, dec0 = state()[:2]
     torch.cuda.reset_peak_memory_stats()
     moe_gmm.launches = decode_attn.launches = 0
     t0 = time.perf_counter()
-    serve_stream(timed_step, [(eng, reqs)])
+    serve_stream(timed_step, pools)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"moe_gmm": moe_gmm.launches,
                 "decode_attn": decode_attn.launches}
     calls = {"decode_steps": eng.decode_steps - dec0,
-             "prefill_calls": eng.prefills - pre0}
-    pure = [s for s in steps if s[1] == 0 and s[2] and s[3] > 0]
-    with_prefill = [s for s in steps if s[1] > 0]
+             "prefill_calls": state()[0] - pre0, "tenants": len(pools)}
+    pure = [s for s in steps if s[1] == 0 and s[2] and s[3] > 0
+            and not s[4]]
+    with_prefill = [s for s in steps if s[1] > 0 and not s[4]]
     ttft_steps = [first[id(r)][0] - submitted[id(r)][0] for r in reqs]
     ttft_ms = [(first[id(r)][1] - submitted[id(r)][1]) * 1e3 for r in reqs]
     total = sum(len(r.out_tokens) for r in reqs)
@@ -350,17 +437,23 @@ def _serve_run(eng, reqs):
                                 if pure else None),
            **_percentiles([s[0] for s in pure], "step_ms"),
            **_percentiles([s[0] for s in with_prefill], "prefill_step_ms"),
+           **_percentiles([s[0] for s in steps if s[4]], "replan_step_ms"),
            "ttft_steps": ttft_steps, "ttft_ms": ttft_ms,
            **_percentiles(ttft_steps, "ttft_steps"),
            **_percentiles(ttft_ms, "ttft_ms"),
            "max_memory_allocated_GB": torch.cuda.max_memory_allocated() / 1e9}
+    if len(pools) > 1:
+        out["tenant_tok_per_s"] = [sum(len(r.out_tokens) for r in rs) / wall
+                                   for _, rs in pools]
     return launches, calls, out
 
 
 def _check_launches(phase, launches, calls):
-    want = {"decode_attn": calls["decode_steps"] * N_LAYERS,
-            "moe_gmm": (calls["decode_steps"] + calls["prefill_calls"])
-            * N_LAYERS}
+    """Exact counts: one ``decode_attn`` per layer of every tenant's
+    decode, one ``moe_gmm`` per layer of every decode and prefill call."""
+    decodes = calls["decode_steps"] * calls["tenants"]
+    want = {"decode_attn": decodes * N_LAYERS,
+            "moe_gmm": (decodes + calls["prefill_calls"]) * N_LAYERS}
     require(launches == want, phase,
             f"launch counts {launches} != expected {want}")
 
@@ -400,7 +493,7 @@ def phase_serve():
     torch.cuda.synchronize()
 
     reqs = _stream(cfg, 10, 64, 200, 16, 64, seed=0)
-    launches, calls, numbers = _serve_run(eng, reqs)
+    launches, calls, numbers = _serve_run(eng, [(eng, reqs)])
     complete = all(len(r.out_tokens) == r.max_new_tokens for r in reqs)
     require(complete, "serve", "a request did not get all its tokens")
     _check_launches("serve", launches, calls)
@@ -412,7 +505,7 @@ def phase_serve():
          slots=SLOTS, cache_cap=CACHE_CAP, admission="one-shot",
          **numbers, prefill_ms=prefill_ms, launches=launches,
          logits_finite=finite)
-    return model, params, eng, launches
+    return model, params, eng, launches, numbers
 
 
 def phase_serve_chunked(model, params):
@@ -432,7 +525,7 @@ def phase_serve_chunked(model, params):
         eng.serve(_stream(cfg, 1, 128, 128, 2, 2, seed=2))    # warm-up
         torch.cuda.synchronize()
         reqs = _stream(cfg, 10, 64, 200, 16, 64, seed=0)
-        launches, calls, numbers = _serve_run(eng, reqs)
+        launches, calls, numbers = _serve_run(eng, [(eng, reqs)])
         phase = f"serve_chunked[{name}]"
         require(all(len(r.out_tokens) == r.max_new_tokens for r in reqs),
                 phase, "a request did not get all its tokens")
@@ -453,6 +546,204 @@ def phase_serve_chunked(model, params):
     require(same, "serve_chunked",
             "pooled streams differ from the serialised ones")
     return total
+
+
+def _instrument(eng, rec):
+    """Wrap the re-planning engine ``eng`` so ``rec`` collects: the host ms
+    of each planning decision (a ``maybe_replan``/``maybe_regroup`` call
+    that recorded an event); of each ``TrafficMonitor.observe`` (numpy on
+    the host); of each pool's ``_observe_decode_routing`` (the counts'
+    copy to the host, which waits for the step's decodes, and the
+    observe); and of each adoption, synchronised, with the memory
+    allocated before and after it and the peak during it. The adoption resets the
+    peak counter, so the peak before it is kept in ``rec["peaks"]``."""
+    import torch
+    rp = eng.replan
+    pools = eng.pools if hasattr(eng, "pools") else [eng.pool_a, eng.pool_b]
+    name = "maybe_regroup" if hasattr(eng, "pools") else "maybe_replan"
+
+    def timed(fn, key, only_events=False):
+        def wrapper(*a, **k):
+            n = len(rp.events)
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            if not only_events or len(rp.events) > n:
+                rec[key].append((time.perf_counter() - t) * 1e3)
+            return out
+        return wrapper
+
+    setattr(rp, name, timed(getattr(rp, name), "plan_ms", True))
+    for pool in pools:
+        pool.monitor.observe = timed(pool.monitor.observe, "observe_ms")
+        pool._observe_decode_routing = timed(pool._observe_decode_routing,
+                                             "observe_routing_ms")
+    adopt = eng.adopt
+
+    def timed_adopt(plan):
+        torch.cuda.synchronize()
+        rec["peaks"].append(torch.cuda.max_memory_allocated())
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        adopt(plan)
+        torch.cuda.synchronize()
+        rec["adopt"].append({
+            "ms": (time.perf_counter() - t) * 1e3, "before_GB": before / 1e9,
+            "after_GB": torch.cuda.memory_allocated() / 1e9,
+            "peak_GB": torch.cuda.max_memory_allocated() / 1e9,
+            "transient_bytes": torch.cuda.max_memory_allocated() - before})
+    eng.adopt = timed_adopt
+
+
+def _replan_numbers(rec, numbers):
+    """Summary of an ``_instrument`` record; the run's peak memory takes in
+    the peaks before each adoption's reset."""
+    peaks = rec["peaks"] + [numbers["max_memory_allocated_GB"] * 1e9]
+    numbers["max_memory_allocated_GB"] = max(peaks) / 1e9
+    return {**_percentiles(rec["plan_ms"], "plan_host_ms"),
+            **_percentiles(rec["observe_ms"], "observe_host_ms"),
+            **_percentiles(rec["observe_routing_ms"],
+                           "observe_decode_routing_ms"),
+            **_percentiles([a["ms"] for a in rec["adopt"]], "adopt_ms"),
+            "adoptions": rec["adopt"]}
+
+
+def phase_serve_colocated(model, params, solo):
+    """Colocation at full width: tenant A is the serve phase's model and
+    params (seed 0), tenant B the same config from seed 1, C from seed 2;
+    8 slots, cache 512 and the serve phase's kind of stream each (seeds 0,
+    1, 2). B's pairing comes from ``plan_colocated`` on synthetic traces,
+    as in the launcher, re-seated into its params in place.
+
+    (a) ``ColocatedContinuousEngine``, one-shot admission, no re-plan;
+    (b) the same with a re-planner forced to adopt every changed pairing
+    (interval 16, threshold -1, warmup 1): streams equal (a), at least one
+    adoption, the final pairing that of the last applied event, and each
+    adoption's transient memory within one (E, d, F) expert slab;
+    (c) ``MultiTenantContinuousEngine`` over A, B, C with chunks of 64,
+    from the identity placement, without and then with a forced
+    re-group: streams equal, at least one adoption, tenant 0 still the
+    anchor. Launch counts are exact in every
+    run. Returns the launches of the four runs and the 2-tenant engines,
+    for the profile."""
+    import torch
+    from repro_torch.core import (AuroraPlanner, homogeneous_cluster,
+                                  synthetic_trace)
+    from repro_torch.serving import (ColocatedContinuousEngine, EngineConfig,
+                                     MultiTenantContinuousEngine,
+                                     OnlineReplanner, reseat_pairing)
+    cfg = model.cfg
+    n = cfg.moe.n_experts
+    slab = n * cfg.d_model * cfg.moe.d_ff * params["embed"].element_size()
+    params_b = model.init(1)
+    planner = AuroraPlanner(homogeneous_cluster(n))
+    plan = planner.plan_colocated(
+        synthetic_trace("a", n_experts=n, n_layers=2, seed=0),
+        synthetic_trace("b", n_experts=n, n_layers=2, seed=1))
+    reseat_pairing(params_b, list(range(n)), plan.pair, cfg)
+    total = {"moe_gmm": 0, "decode_attn": 0}
+    streams, engines = {}, {}
+    solo_ms = {k: solo[k] for k in ("step_ms_mean", "step_ms_p50",
+                                    "step_ms_p95")}
+
+    def run(name, eng, pools, chunk=None):
+        launches, calls, numbers = _serve_run(eng, pools)
+        phase = f"serve_colocated[{name}]"
+        require(all(len(r.out_tokens) == r.max_new_tokens
+                    for _, rs in pools for r in rs), phase,
+                "a request did not get all its tokens")
+        _check_launches(phase, launches, calls)
+        for pool, _ in pools:
+            _finite_decode(phase, pool, pool.params)
+        for k in total:
+            total[k] += launches[k]
+        streams[name] = [[list(r.out_tokens) for r in rs] for _, rs in pools]
+        return launches, numbers
+
+    def two_tenant_reqs():
+        return [(_stream(cfg, 10, 64, 200, 16, 64, seed=s)) for s in (0, 1)]
+
+    for name in ("a_static", "b_replan"):
+        replan = (OnlineReplanner(planner, interval=16, threshold=-1.0,
+                                  warmup=1) if name == "b_replan" else None)
+        eng = ColocatedContinuousEngine(
+            model, model, params, params_b, batch_slots=SLOTS,
+            cache_cap=CACHE_CAP, config=EngineConfig(kernels=True),
+            pair=plan.pair, replan=replan)
+        if replan is None:                                    # warm-up
+            eng.serve(_stream(cfg, 1, 64, 64, 2, 2, seed=2),
+                      _stream(cfg, 1, 64, 64, 2, 2, seed=3))
+        rec = {k: [] for k in ("plan_ms", "observe_ms", "observe_routing_ms",
+                               "adopt", "peaks")}
+        if replan is not None:
+            _instrument(eng, rec)
+        reqs = two_tenant_reqs()
+        launches, numbers = run(name, eng, [(eng.pool_a, reqs[0]),
+                                            (eng.pool_b, reqs[1])])
+        extra = {}
+        if replan is not None:
+            events = eng.replan_events
+            applied = [e for e in events if e.applied]
+            extra = {**_replan_numbers(rec, numbers),
+                     "events": len(events), "applied": len(applied),
+                     "final_pair": eng.pair, "initial_pair": plan.pair}
+            require(applied and eng.pair == applied[-1].pair, name,
+                    f"{len(applied)} pairings applied, final pair "
+                    f"{eng.pair}")
+            worst = max(a["transient_bytes"] for a in rec["adopt"])
+            require(worst <= slab + 2 ** 20, name,
+                    f"an adoption took {worst} bytes beyond the weights; "
+                    f"one expert slab is {slab}")
+        emit("serve_colocated", ok=True, run=name, admission="one-shot",
+             pair=plan.pair, **numbers, solo_step_ms=solo_ms,
+             launches=launches, **extra)
+        engines[name] = eng
+    same = streams["a_static"] == streams["b_replan"]
+    emit("serve_colocated", tenants=2, replanned_equals_static=same)
+    require(same, "serve_colocated",
+            "re-planned streams differ from the static run's")
+
+    # (c): three tenants from the identity placement (B's params are
+    # re-seated back from the pairing (b) left in them).
+    reseat_pairing(params_b, engines["b_replan"].pair, list(range(n)), cfg)
+    params_c = model.init(2)
+    for name in ("c_static", "c_regroup"):
+        replan = (OnlineReplanner(planner, interval=16, threshold=-1.0,
+                                  warmup=1) if name == "c_regroup" else None)
+        eng = MultiTenantContinuousEngine(
+            [model] * 3, [params, params_b, params_c], batch_slots=SLOTS,
+            cache_cap=CACHE_CAP,
+            config=EngineConfig(kernels=True, prefill_chunk=64),
+            replan=replan)
+        rec = {k: [] for k in ("plan_ms", "observe_ms", "observe_routing_ms",
+                               "adopt", "peaks")}
+        if replan is not None:
+            _instrument(eng, rec)
+        reqs = [_stream(cfg, 10, 64, 200, 16, 64, seed=s) for s in (0, 1, 2)]
+        launches, numbers = run(name, eng, list(zip(eng.pools, reqs)))
+        extra = {}
+        if replan is not None:
+            applied = [e for e in eng.replan_events if e.applied]
+            anchored = all(g[0] == i for i, g in enumerate(eng.groups))
+            extra = {**_replan_numbers(rec, numbers),
+                     "events": len(eng.replan_events),
+                     "applied": len(applied), "anchor_kept": anchored}
+            require(applied and anchored, name,
+                    f"{len(applied)} groupings applied, tenant 0 anchored: "
+                    f"{anchored}")
+            worst = max(a["transient_bytes"] for a in rec["adopt"])
+            require(worst <= slab + 2 ** 20, name,
+                    f"an adoption took {worst} bytes beyond the weights; "
+                    f"one expert slab is {slab}")
+        emit("serve_colocated", ok=True, run=name, prefill_chunk=64,
+             **numbers, solo_step_ms=solo_ms, launches=launches, **extra)
+        del eng
+    same = streams["c_static"] == streams["c_regroup"]
+    emit("serve_colocated", tenants=3, regrouped_equals_static=same)
+    require(same, "serve_colocated",
+            "re-grouped streams differ from the static run's")
+    del params_c
+    return total, engines
 
 
 def _chunk_ms(eng, params):
@@ -674,6 +965,51 @@ def phase_profile(eng, steps: int = 10):
     _profile("chunk64_first", chunk, steps)
 
 
+def phase_profile_lockstep(engines, steps: int = 10, repeats: int = 6):
+    """A 2-tenant lockstep decode step as ``ColocatedContinuousEngine`` runs
+    it (every row frozen): both tenants' decodes, then both argmax copies
+    to the host. Then the re-planning engine's step, which also returns
+    the routing counts and folds them into its monitors
+    (``_observe_decode_routing``: the host copy, then ``observe``) before
+    the argmaxes. Then the cost of the counts alone: ``repeats`` rounds of
+    ``steps`` steps each way, alternating which way goes first; the host
+    ms per step of each round and the medians are printed."""
+    import numpy as np
+    import torch
+    fns = {}
+    for path, eng in (("lockstep2_decode", engines["a_static"]),
+                      ("lockstep2_decode_stats", engines["b_replan"])):
+        pools = [eng.pool_a, eng.pool_b]
+        masks = [torch.zeros(SLOTS, dtype=torch.bool, device=p.device)
+                 for p in pools]
+        frozen = np.zeros(SLOTS, bool)
+
+        def step(eng=eng, pools=pools, masks=masks, frozen=frozen):
+            out = eng._step([p.params for p in pools],
+                            [p.tokens for p in pools],
+                            [p.cache for p in pools], masks)
+            for stats in out[2:]:
+                for p, s in zip(pools, stats):
+                    p._observe_decode_routing(s, frozen)
+            for p, logits in zip(pools, out[0]):
+                torch.argmax(logits[:, :, :p.model.cfg.vocab], dim=-1).cpu()
+
+        _profile(path, step, steps)
+        fns[path] = step
+    ms = {path: [] for path in fns}
+    for r in range(repeats):
+        for path in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(steps):
+                fns[path]()
+            torch.cuda.synchronize()
+            ms[path].append((time.perf_counter() - t) * 1e3 / steps)
+    emit("profile", path="lockstep2_counts_alternated", steps=steps,
+         repeats=repeats, step_ms=ms,
+         median_ms={k: float(np.median(v)) for k, v in ms.items()})
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke.py runs from the root of a checkout of the repo "
@@ -684,12 +1020,18 @@ def main() -> int:
     phase_build()
     errs = phase_parity()
     phase_reference()
-    model, params, eng, launches = phase_serve()
+    model, params, eng, launches, solo = phase_serve()
     chunked = phase_serve_chunked(model, params)
     launches = {k: launches[k] + chunked[k] for k in launches}
     rows = phase_timing(model, params, eng, launches, errs)
     phase_profile(eng)
     import torch
+    del eng                           # the one-shot engine's cache
+    torch.cuda.empty_cache()
+    colocated, engines = phase_serve_colocated(model, params, solo)
+    phase_profile_lockstep(engines)
+    for r in rows:
+        r["launches"] += colocated[r["name"]]
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "launches",

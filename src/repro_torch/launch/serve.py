@@ -10,10 +10,18 @@
   python -m repro_torch.launch.serve --arch phi3.5-moe-42b-a6.6b --reduced \
       --device cpu --prefill-chunk 4 --prefill-pool 2 --step-budget 9 \
       --ttft-slo 12
+  python -m repro_torch.launch.serve --arch phi3.5-moe-42b-a6.6b --reduced \
+      --device cpu --colocate-with phi3.5-moe-42b-a6.6b --kernels \
+      --prefill-chunk 4 --replan-interval 8
 
-The counterpart of ``python -m repro.launch.serve`` for the continuous,
-single-model path. Inter-arrival gaps are Exp(``--arrival-rate``) in
-decode-step units. ``--prefill-chunk``, ``--step-budget``,
+The counterpart of ``python -m repro.launch.serve`` for the continuous
+paths. ``--colocate-with ARCH`` serves a second model (weights from seed
+1) beside the first in ``ColocatedContinuousEngine``, with the expert
+pairing that ``AuroraPlanner.plan_colocated`` picks from synthetic traces
+of both models; ``--replan-interval N`` re-plans it from the live routing
+counts every N lockstep decode steps, adopting a plan that is predicted
+faster by more than ``--replan-threshold``. Inter-arrival gaps are
+Exp(``--arrival-rate``) in decode-step units. ``--prefill-chunk``, ``--step-budget``,
 ``--prefill-pool`` and ``--bucket-policy`` configure chunked admission;
 ``--ttft-slo``/``--tpot-slo`` declare a ``TenantSpec`` (p95 targets in
 engine steps) and switch admission to ``EdfAdmission`` over the same chunk
@@ -34,6 +42,9 @@ import numpy as np
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
+    ap.add_argument("--colocate-with", default=None,
+                    help="serve a second model beside --arch (colocated "
+                         "continuous engine, planner-chosen pairing)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--n-layers", type=int, default=None,
                     help="cut the layer count (full widths are kept)")
@@ -56,6 +67,12 @@ def main(argv=None) -> int:
                          "(requires --prefill-chunk)")
     ap.add_argument("--bucket-policy", default="pow2",
                     help="prefill pad-length policy: pow2 | exact | step:K")
+    ap.add_argument("--replan-interval", type=int, default=None,
+                    help="colocated mode: re-plan the expert pairing from "
+                         "live routing stats every N decode steps")
+    ap.add_argument("--replan-threshold", type=float, default=0.02,
+                    help="min relative predicted-time improvement before a "
+                         "re-plan is applied")
     ap.add_argument("--ttft-slo", type=float, default=None,
                     help="p95 TTFT target in engine steps: declares a "
                          "TenantSpec (stamps per-request deadlines) and "
@@ -98,17 +115,24 @@ def main(argv=None) -> int:
                               prefill_pool=args.prefill_pool,
                               kernels=args.kernels)
 
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
-    if args.n_layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
-    model = Model(cfg, device=args.device)
+    def load(arch: str):
+        cfg = get_config(arch)
+        if args.reduced:
+            cfg = cfg.reduced()
+        if args.n_layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
+        return cfg, Model(cfg, device=args.device)
+
+    cfg, model = load(args.arch)
     params = model.init(0)
+    rng = np.random.default_rng(0)
+    if args.colocate_with is not None:
+        return _serve_colocated(args, config, cfg, model, params, load, rng)
+    if args.replan_interval is not None:
+        raise SystemExit("--replan-interval needs --colocate-with")
     eng = ContinuousEngine(
         model, params, batch_slots=args.batch, cache_cap=args.cache_cap,
         config=config)
-    rng = np.random.default_rng(0)
     reqs = poisson_requests(rng, args.num_requests, args.arrival_rate,
                             cfg.vocab, args.prompt_len,
                             max(1, args.max_new_tokens // 2),
@@ -119,6 +143,60 @@ def main(argv=None) -> int:
     print(f"{total} tokens in {eng.decode_steps} decode steps "
           f"({total / max(eng.decode_steps, 1):.2f} tok/step, "
           f"{args.batch} slots)")
+    return 0
+
+
+def _serve_colocated(args, config, cfg, model, params, load, rng) -> int:
+    """Two models in ``ColocatedContinuousEngine``: the pairing is planned
+    from synthetic traces and re-seated into model B's params in place;
+    two Poisson streams, one per model."""
+    from repro_torch.core import (AuroraPlanner, homogeneous_cluster,
+                                  synthetic_trace)
+    from repro_torch.serving import (ColocatedContinuousEngine,
+                                     OnlineReplanner, poisson_requests,
+                                     reseat_pairing)
+
+    cfg_b, model_b = load(args.colocate_with)
+    params_b = model_b.init(1)
+    plan = planner = None
+    if (cfg.moe is not None and cfg_b.moe is not None
+            and cfg.moe.n_experts == cfg_b.moe.n_experts):
+        n = cfg.moe.n_experts
+        tr_a = synthetic_trace("a", n_experts=n, n_layers=2, seed=0)
+        tr_b = synthetic_trace("b", n_experts=n, n_layers=2, seed=1)
+        planner = AuroraPlanner(homogeneous_cluster(n))
+        plan = planner.plan_colocated(tr_a, tr_b)
+        params_b = reseat_pairing(params_b, list(range(n)), plan.pair, cfg_b)
+        print(f"aurora colocation pairing: {plan.pair}")
+    replan = None
+    if args.replan_interval is not None:
+        if plan is None:
+            raise SystemExit("--replan-interval needs two MoE models with "
+                             "equal expert counts")
+        replan = OnlineReplanner(planner, interval=args.replan_interval,
+                                 threshold=args.replan_threshold)
+    eng = ColocatedContinuousEngine(
+        model, model_b, params, params_b, batch_slots=args.batch,
+        cache_cap=args.cache_cap, config=config,
+        pair=list(plan.pair) if plan else None, replan=replan)
+    lo = max(1, args.max_new_tokens // 2)
+    reqs_a = poisson_requests(rng, args.num_requests, args.arrival_rate,
+                              cfg.vocab, args.prompt_len, lo,
+                              args.max_new_tokens)
+    reqs_b = poisson_requests(rng, args.num_requests, args.arrival_rate,
+                              cfg_b.vocab, args.prompt_len, lo,
+                              args.max_new_tokens)
+    eng.serve(reqs_a, reqs_b)
+    for tag, reqs in (("A", reqs_a), ("B", reqs_b)):
+        total = sum(len(r.out_tokens) for r in reqs)
+        print(f"model {tag}: {total} tokens over {len(reqs)} requests")
+    print(f"{eng.decode_steps} lockstep decode steps")
+    for e in eng.replan_events:
+        tag = "APPLIED" if e.applied else "kept"
+        print(f"replan @ step {e.step}: current {e.stale_time:.3f} vs "
+              f"candidate {e.candidate_time:.3f} -> {tag}")
+    if eng.replan_events:
+        print(f"final pairing: {eng.pair}")
     return 0
 
 

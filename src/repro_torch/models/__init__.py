@@ -3,9 +3,9 @@
 from .layers import KernelConfig
 from .model import Model
 from .transformer import (Segment, forward, init_cache, init_params,
-                          merge_cache_slot, padded_vocab, segments_of,
-                          slice_cache_slot)
+                          merge_cache_slot, moe_layer_count, padded_vocab,
+                          segments_of, slice_cache_slot)
 
 __all__ = ["KernelConfig", "Model", "Segment", "forward", "init_cache",
-           "init_params", "merge_cache_slot", "padded_vocab", "segments_of",
-           "slice_cache_slot"]
+           "init_params", "merge_cache_slot", "moe_layer_count",
+           "padded_vocab", "segments_of", "slice_cache_slot"]

@@ -55,17 +55,23 @@ class Model:
         return tf.padded_vocab(self.cfg)
 
     # -- serving -----------------------------------------------------------
-    def prefill(self, params, inputs, cache, continuation: bool = False):
+    def prefill(self, params, inputs, cache, collect_moe_stats: bool = False,
+                continuation: bool = False):
         """inputs: {"tokens": (B, S)}. A fresh prefill from position 0, or
         with ``continuation=True`` one that resumes at the cache's fill
         level (a scalar, or a (B,) vector: each row at its own offset), so
         a prompt absorbed chunk by chunk equals a one-shot prefill. The
-        cache is written in place. Returns (logits, cache)."""
-        logits, _ = tf.forward(params, self.cfg, tokens=inputs["tokens"],
-                               mode="prefill", cache=cache,
-                               kernels=self.kernels,
-                               continuation=continuation)
-        return logits, cache
+        cache is written in place. Returns (logits, cache), plus the
+        (n_moe_layers, B, S, E) per-position routing counts when
+        ``collect_moe_stats`` (mask left-pad positions before
+        aggregating)."""
+        out = tf.forward(params, self.cfg, tokens=inputs["tokens"],
+                         mode="prefill", cache=cache, kernels=self.kernels,
+                         continuation=continuation,
+                         collect_moe_stats=collect_moe_stats)
+        if collect_moe_stats:
+            return out[0], cache, out[2]
+        return out[0], cache
 
     def decode_step(self, params, token, cache, row_mask=None):
         """token: (B, 1). Returns (logits (B, 1, V), cache), the cache updated
@@ -77,14 +83,26 @@ class Model:
                                row_mask=row_mask)
         return logits, cache
 
-    def prefill_slot(self, params, inputs, cache, slot: int, *, cap: int):
+    def decode_step_stats(self, params, token, cache, row_mask=None):
+        """``decode_step`` that also returns the (n_moe_layers, B, E) float32
+        per-slot routed-choice counts (the live traffic signal of
+        ``serving.monitor.TrafficMonitor``)."""
+        logits, _, stats = tf.forward(
+            params, self.cfg, tokens=token, mode="decode", cache=cache,
+            kernels=self.kernels, row_mask=row_mask, collect_moe_stats=True)
+        return logits, cache, stats[:, :, 0, :]          # S == 1 at decode
+
+    def prefill_slot(self, params, inputs, cache, slot: int, *, cap: int,
+                     collect_moe_stats: bool = False):
         """Prefill ONE request into row ``slot`` of a per-slot cache. The
         row ends up as the reference's fresh zero batch-1 cache would after
         its merge (no state of the slot's previous occupant can leak): the
         whole prompt is the first and only chunk of ``prefill_chunk_slot``.
-        Returns (logits, cache)."""
+        Returns (logits, cache), plus the (n_moe_layers, 1, S, E) routing
+        counts when ``collect_moe_stats``."""
         return self.prefill_chunk_slot(params, inputs, cache, slot,
-                                       first=True, cap=cap)
+                                       first=True, cap=cap,
+                                       collect_moe_stats=collect_moe_stats)
 
     def merge_slot(self, cache, sub, slot: int):
         """Write a completed batch-1 prefill cache into row ``slot`` of the
@@ -92,7 +110,8 @@ class Model:
         return tf.merge_cache_slot(cache, sub, slot)
 
     def prefill_chunk_slot(self, params, inputs, cache, slot: int, *,
-                           first: bool, cap: int):
+                           first: bool, cap: int,
+                           collect_moe_stats: bool = False):
         """One chunk of a chunked prefill for row ``slot`` of the shared
         per-slot cache, run on a batch-1 view of that row
         (``slice_cache_slot``), so the chunk writes the row and its fill
@@ -106,7 +125,8 @@ class Model:
         against decode writes (``decode_step(row_mask=...)``). ``cap`` is
         the cache capacity, as in the reference (it sizes the fresh cache
         there; here it must match the shared cache). Returns (logits,
-        cache)."""
+        cache), plus the chunk's (n_moe_layers, 1, C, E) routing counts
+        when ``collect_moe_stats``."""
         have = cache["segments"][0][0]["k"].shape[2]
         if cap != have:
             raise ValueError(f"cap {cap} != the cache's capacity {have}")
@@ -115,9 +135,14 @@ class Model:
             for leaf in tf.cache_leaves(sub):
                 leaf.zero_()
             sub["len"].zero_()
-        logits, _ = self.prefill(params, inputs, sub,
-                                 continuation=not first)
-        return logits, cache
+        out = self.prefill(params, inputs, sub, continuation=not first,
+                           collect_moe_stats=collect_moe_stats)
+        return (out[0], cache) + tuple(out[2:])
+
+    @property
+    def n_moe_layers(self) -> int:
+        """MoE layer count, in the canonical routing-stats order."""
+        return tf.moe_layer_count(self.cfg)
 
     def chunkable_len(self, cache_cap: int) -> int | None:
         """Longest (padded) prompt absorbable in chunks: ``None`` when

@@ -93,6 +93,26 @@ def sort_dispatch(idx, n_experts: int, cap: int):
             keep.reshape(t, k))
 
 
+def routed_counts(idx, n_experts: int):
+    """(T, k) routed expert ids -> (T, E) float32 per-token choice histogram.
+    Capacity drops are included: it measures the OFFERED dispatch traffic,
+    the quantity the deployment planner consumes. One scatter-add, shared
+    by the dense and the kernel dispatch."""
+    t, k = idx.shape
+    counts = torch.zeros((t, n_experts), dtype=torch.float32,
+                         device=idx.device)
+    ones = torch.ones((t, k), dtype=torch.float32, device=idx.device)
+    return counts.scatter_add_(1, idx.long(), ones)
+
+
+def _with_counts(y, aux, idx, shape, moe, return_counts: bool):
+    """(y, aux), plus the (..., E) routed-choice counts when asked."""
+    if not return_counts:
+        return y, aux
+    counts = routed_counts(idx, moe.n_experts)
+    return y, aux, counts.reshape(shape[:-1] + (moe.n_experts,))
+
+
 def _experts_ffn(experts, xb, act: str):
     """Each expert's FFN on its bucket. xb: (E, C, d)."""
     h = torch.einsum("ecd,edf->ecf", xb, experts["w_gate"])
@@ -110,8 +130,10 @@ def _combine(xt, picked, gates, t_f):
 # Dense (reference) dispatch
 # ---------------------------------------------------------------------------
 
-def moe_apply_dense(p, x, moe, act: str):
-    """Reference MoE layer. x: (..., d) -> (y, aux)."""
+def moe_apply_dense(p, x, moe, act: str, return_counts: bool = False):
+    """Reference MoE layer. x: (..., d) -> (y, aux[, counts]).
+    ``return_counts=True`` appends the (..., E) float32 routed-choice
+    histogram (``routed_counts``)."""
     shape = x.shape
     d = shape[-1]
     xt = x.reshape(-1, d)
@@ -130,16 +152,18 @@ def moe_apply_dense(p, x, moe, act: str):
     y = _combine(xt, picked, gates, t_f)
     if "shared" in p:
         y = y + ffn_apply(p["shared"], xt, act)
-    return y.reshape(shape), aux
+    return _with_counts(y.reshape(shape), aux, idx, shape, moe, return_counts)
 
 
 # ---------------------------------------------------------------------------
 # Kernel dispatch: sort-based buckets feeding the grouped FFN kernel
 # ---------------------------------------------------------------------------
 
-def moe_apply_kernel(p, x, moe, act: str, kernels: KernelConfig | None = None):
+def moe_apply_kernel(p, x, moe, act: str, kernels: KernelConfig | None = None,
+                     return_counts: bool = False):
     """Kernelized MoE layer, same routing/capacity/drops as the dense
-    reference. x: (..., d) -> (y, aux).
+    reference. x: (..., d) -> (y, aux[, counts]); the counts come from the
+    routing ``idx``, as on the dense path.
 
     Kept assignments are scattered, in expert-sorted order, into buckets of
     ``align_capacity(cap, block_c)`` rows; unfilled rows point at a zero pad
@@ -183,11 +207,13 @@ def moe_apply_kernel(p, x, moe, act: str, kernels: KernelConfig | None = None):
     y = _combine(xt, picked, gates, t_f)
     if "shared" in p:
         y = y + ffn_apply(p["shared"], xt, act)
-    return y.reshape(shape), aux
+    return _with_counts(y.reshape(shape), aux, idx, shape, moe, return_counts)
 
 
-def moe_apply(p, x, moe, act: str, kernels: KernelConfig | None = None):
+def moe_apply(p, x, moe, act: str, kernels: KernelConfig | None = None,
+              return_counts: bool = False):
     """Kernel dispatch when a ``KernelConfig`` is attached, else dense."""
     if kernels is not None:
-        return moe_apply_kernel(p, x, moe, act, kernels)
-    return moe_apply_dense(p, x, moe, act)
+        return moe_apply_kernel(p, x, moe, act, kernels,
+                                return_counts=return_counts)
+    return moe_apply_dense(p, x, moe, act, return_counts=return_counts)

@@ -44,6 +44,13 @@ def padded_vocab(cfg) -> int:
     return -(-cfg.vocab // 256) * 256
 
 
+def moe_layer_count(cfg) -> int:
+    """Number of MoE layers, in the canonical stats order (segment-major,
+    kind-major, block-major: the order ``forward(collect_moe_stats=True)``
+    stacks the per-layer routing counts in)."""
+    return sum(seg.count * seg.kinds.count("E") for seg in segments_of(cfg))
+
+
 def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
@@ -161,23 +168,29 @@ def slice_cache_slot(cache, slot: int):
 # ---------------------------------------------------------------------------
 
 def _apply_layer(kind, p, x, entry, *, cfg, kernels, mode, pos, length,
-                 row_mask):
-    """One layer. Returns (x, aux); the cache entry is updated in place."""
+                 row_mask, collect_stats=False):
+    """One layer. Returns (x, aux, counts): counts are the (B, S, E) routed
+    choices of an E layer when ``collect_stats``, else None. The cache
+    entry is updated in place."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     y = attn_mod.attn_block(p["attn"], h, cfg=cfg, pos=pos, cache=entry,
                             length=length, mode=mode, kernels=kernels,
                             row_mask=row_mask)
     x = x + y
     h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    if kind == "E":
+    counts = None
+    if kind == "E" and collect_stats:
+        y2, aux, counts = moe_apply(p["moe"], h2, cfg.moe, cfg.act, kernels,
+                                    return_counts=True)
+    elif kind == "E":
         y2, aux = moe_apply(p["moe"], h2, cfg.moe, cfg.act, kernels)
     else:
         y2, aux = ffn_apply(p["ffn"], h2, cfg.act), x.new_zeros((), dtype=torch.float32)
-    return x + y2, aux
+    return x + y2, aux, counts
 
 
 def forward(params, cfg, *, tokens, mode, cache, kernels=None,
-            continuation=False, row_mask=None):
+            continuation=False, row_mask=None, collect_moe_stats=False):
     """Run the decoder stack in "prefill" or "decode" mode.
 
     prefill: tokens (B, S), a fresh prefill written from cache position 0;
@@ -190,6 +203,9 @@ def forward(params, cfg, *, tokens, mode, cache, kernels=None,
     cache contents and length; their logits are computed all the same.
     Returns (logits (B, S, padded_vocab), aux_loss); ``cache`` is updated
     in place (its ``len`` advances by S, or by 1 on unmasked decode rows).
+    ``collect_moe_stats=True`` appends the (n_moe_layers, B, S, E) float32
+    per-position routed-choice counts, in ``moe_layer_count`` order
+    (callers mask pad positions before aggregating prefill traffic).
     """
     x = params["embed"][tokens]
     x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
@@ -207,17 +223,23 @@ def forward(params, cfg, *, tokens, mode, cache, kernels=None,
         pos = torch.arange(s, device=x.device)[None].expand(b, s)
 
     aux_total = x.new_zeros((), dtype=torch.float32)
+    stats = []
     for si, seg in enumerate(segments_of(cfg)):
         seg_params = params["segments"][si]
         seg_cache = cache["segments"][si]
+        per_kind = [[] for _ in seg.kinds]      # stats order: kind-major
         for blk in range(seg.count):
             for i, kind in enumerate(seg.kinds):
                 p_l = _index_tree(seg_params[i], blk)
                 entry = {name: t[blk] for name, t in seg_cache[i].items()}
-                x, aux = _apply_layer(kind, p_l, x, entry, cfg=cfg,
-                                      kernels=kernels, mode=mode, pos=pos,
-                                      length=length, row_mask=row_mask)
+                x, aux, counts = _apply_layer(
+                    kind, p_l, x, entry, cfg=cfg, kernels=kernels, mode=mode,
+                    pos=pos, length=length, row_mask=row_mask,
+                    collect_stats=collect_moe_stats)
                 aux_total = aux_total + aux
+                if counts is not None:
+                    per_kind[i].append(counts)
+        stats.extend(c for kind_stats in per_kind for c in kind_stats)
 
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
@@ -227,6 +249,10 @@ def forward(params, cfg, *, tokens, mode, cache, kernels=None,
         cache["len"] += inc
     else:
         cache["len"] += s
+    if collect_moe_stats:
+        moe_stats = (torch.stack(stats) if stats else torch.zeros(
+            (0, b, s, 0), dtype=torch.float32, device=x.device))
+        return logits, aux_total, moe_stats
     return logits, aux_total
 
 

@@ -20,11 +20,11 @@ Policies see pending requests as ``RequestSpec`` objects through
 and ``order(reqs)`` (the queue discipline). Reordering is placement-only:
 each request's tokens depend only on its own slot row.
 
-``TenantSpec`` declares a tenant's SLO targets (engine-step units); the
-engine stamps per-request deadlines from it at submit. Not ported: the
-reference's ``TenantSpec.model/params/pair`` (they wait for the
-multi-tenant engine), its deprecated-keyword and ``chunk_budget`` shims,
-and ``EngineConfig.jit/step_wrapper/telemetry``.
+``TenantSpec`` declares a tenant's SLO targets (engine-step units), which
+the engine turns into per-request deadlines at submit, and for the
+multi-tenant engine its model, params and expert pairing. Not ported: the
+reference's deprecated-keyword and ``chunk_budget`` shims, and
+``EngineConfig.jit/step_wrapper/telemetry``.
 """
 
 from __future__ import annotations
@@ -311,15 +311,25 @@ class EdfAdmission:
 @dataclasses.dataclass(frozen=True)
 class TenantSpec:
     """One tenant's SLO targets, in engine-step units (the clock of
-    ``Request.arrival``). ``ttft_p95`` becomes each request's deadline
+    ``Request.arrival``), and for the multi-tenant engine its model, params
+    and expert pairing. ``ttft_p95`` becomes each request's deadline
     (``arrival + ttft_p95``) at submit; ``tpot_p95`` is reported, not
     scheduled on; ``rate_share`` is the tenant's fraction of the step token
-    budget (``scale_admission``). Shares across one config sum to <= 1."""
+    budget (``scale_admission``). Shares across one config sum to <= 1.
+
+    ``model``/``params``/``pair`` let ``MultiTenantContinuousEngine`` be
+    built from ``EngineConfig(tenants=...)`` alone, and ``admit_tenant``
+    take the same validated type. ``params`` are in the LOGICAL
+    (unpermuted) frame; ``pair`` is the slot->expert placement the engine
+    realises (identity when None)."""
 
     name: str | None = None
     ttft_p95: float | None = None
     tpot_p95: float | None = None
     rate_share: float | None = None
+    model: object = None
+    params: object = None
+    pair: tuple[int, ...] | None = None
 
     def __post_init__(self):
         for field in ("ttft_p95", "tpot_p95"):
@@ -331,6 +341,12 @@ class TenantSpec:
             raise ValueError("rate_share must be in (0, 1] — it is the "
                              "tenant's fraction of the step token budget, "
                              f"got {self.rate_share!r}")
+        if self.pair is not None:
+            object.__setattr__(self, "pair",
+                               tuple(int(x) for x in self.pair))
+        if self.params is not None and self.model is None:
+            raise ValueError("TenantSpec.params without model — the engine "
+                             "needs both to host the tenant")
 
     def deadline(self, arrival: float) -> float:
         """Absolute deadline of a request arriving at ``arrival``
@@ -363,7 +379,8 @@ class EngineConfig:
     shorthand for the stock policies (set one or the other, not both).
     ``prefill_pool = K`` keeps up to K chunked prefills in flight; each
     engine step runs all their picked chunks (each a batch-1 call) and the
-    decode. ``tenants``: at most one ``TenantSpec`` for this engine.
+    decode. ``tenants``: at most one ``TenantSpec`` for ``ContinuousEngine``;
+    the colocated and multi-tenant engines give one to each pool.
     ``kernels``: ``False`` (plain dense path), ``True`` (default
     ``KernelConfig``) or a ``KernelConfig``, applied by ``kernelize``.
     ``event_capacity`` bounds ``shed_events`` (drop-oldest).

@@ -31,9 +31,21 @@ lengths stay frozen); and the current-token buffer is replaced wholesale by
 the argmax over all rows after each decode. Chunk bookkeeping (offsets,
 padded tokens) stays on the host.
 
+Live routing stats (``monitor=TrafficMonitor(...)``): every decode step,
+one-shot prefill and chunk also returns its per-layer expert routing counts
+(``Model.decode_step_stats``, ``collect_moe_stats=True``), which are copied
+to the host and folded into the monitor, feeding the re-planner
+(``serving.monitor``). Each copy waits for the call that made the counts.
+Prefill counts drop the left-pad positions.
+
+Placement (``adopt_assignment``, ``adopt``): an expert->device assignment
+is realised by re-seating the expert weights and the router columns in
+place (``colocated.reseat_pairing``), so the function, and every emitted
+token, stays the same.
+
 The cache is updated in place (the reference donates it to a jitted step).
-The monitor/replanner hooks, replication, telemetry and fault tolerance
-(``checkpoint``/``restore``/``requeue``) are not ported yet.
+Replication, telemetry and fault tolerance (``checkpoint``/``restore``/
+``requeue``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -46,6 +58,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..core.errors import PlanError
 from ..models import Model
 from .config import EngineConfig, RequestSpec, ShedEvent
 from .events import RingBuffer
@@ -113,10 +126,14 @@ class ContinuousEngine:
     in-flight chunked prefills); the device holds the shared cache and the
     (B, 1) current-token buffer. ``prefills`` counts model prefill calls,
     one-shot and chunk alike; ``decode_steps`` counts decode calls.
+    ``monitor``: an optional ``TrafficMonitor`` fed with the routing counts
+    of every call. ``assignment``: the expert->device map realised in
+    ``params`` (identity until one is adopted; None for a dense model).
     """
 
     def __init__(self, model: Model, params, batch_slots: int,
-                 cache_cap: int, config: EngineConfig | None = None):
+                 cache_cap: int, config: EngineConfig | None = None,
+                 monitor=None):
         config = config if config is not None else EngineConfig()
         self.config = config
         model = config.kernelize(model)
@@ -134,6 +151,9 @@ class ContinuousEngine:
         self.prefill_len = config.prefill_len
         self.prefill_chunk = self.admission.chunk
         self._pool_size = config.prefill_pool
+        self.monitor = monitor
+        self.assignment = (list(range(model.cfg.moe.n_experts))
+                           if model.cfg.moe is not None else None)
         self.cache = model.init_cache(batch_slots, cache_cap,
                                       per_slot_len=True)
         self.tokens = torch.zeros((batch_slots, 1), dtype=torch.long,
@@ -147,6 +167,52 @@ class ContinuousEngine:
         self.prefills = 0
         # Rejected submits under shed-mode admission, drop-oldest.
         self.shed_events = RingBuffer(config.event_capacity)
+
+    def adopt_assignment(self, expert_to_device) -> None:
+        """Adopt an exclusive-scenario expert->device assignment (Thm 5.1),
+        placement-only: device slot d's expert weights are re-seated in
+        place so expert e sits on ``expert_to_device[e]``, and the router
+        columns follow (``reseat_pairing``), so the composed function and
+        every emitted token are unchanged. The monitor's stats frame
+        follows the new slot->expert map. Here a "device slot" is a
+        position along the expert axis, as expert-parallel sharding places
+        contiguous expert blocks."""
+        from .colocated import inverse_pair, reseat_pairing
+        if self.assignment is None:
+            raise PlanError("adopt_assignment needs an MoE model "
+                            "(expert->device assignment is per expert)")
+        e2d = [int(x) for x in np.asarray(expert_to_device).tolist()]
+        n_e = len(self.assignment)
+        if sorted(e2d) != list(range(n_e)):
+            raise PlanError(
+                f"expert_to_device {e2d} is not a permutation of "
+                f"0..{n_e - 1} — exclusive assignment places one expert "
+                "per device")
+        if e2d == self.assignment:
+            return
+        new_pair = inverse_pair(e2d)              # device slot -> expert
+        self.params = reseat_pairing(self.params,
+                                     inverse_pair(self.assignment), new_pair,
+                                     self.model.cfg)
+        self.assignment = e2d
+        if self.monitor is not None:
+            self.monitor.slot_to_expert = new_pair
+
+    def adopt(self, plan) -> None:
+        """Adopt a placement mid-stream: an exclusive-scenario ``Plan`` (its
+        ``expert_to_device``), or None (no replicas: nothing to drop).
+        Replicated plans and bare host maps wait for the replication slice
+        of the port and raise."""
+        if plan is None:
+            return
+        if not hasattr(plan, "schedules") or plan.replication is not None:
+            raise NotImplementedError(
+                "hot-expert replication is not ported yet: this engine "
+                "adopts expert->device assignments only")
+        if (plan.pair is None and plan.groups is None
+                and self.assignment is not None
+                and len(plan.expert_to_device) == len(self.assignment)):
+            self.adopt_assignment(plan.expert_to_device)
 
     @property
     def num_active(self) -> int:
@@ -277,12 +343,16 @@ class ContinuousEngine:
         while self.queue and None in self.slots:
             slot = self.slots.index(None)
             r = self._pop_queue()
-            toks = torch.from_numpy(self._padded(r)).to(self.device)
-            logits, self.cache = self.model.prefill_slot(
-                self.params, {"tokens": toks}, self.cache, slot,
-                cap=self.cache_cap)
+            padded = self._padded(r)
+            out = self.model.prefill_slot(
+                self.params, {"tokens": torch.from_numpy(padded).to(
+                    self.device)}, self.cache, slot, cap=self.cache_cap,
+                collect_moe_stats=self.monitor is not None)
             self.prefills += 1
-            self._finish_admission(r, slot, logits)
+            if self.monitor is not None:
+                self._observe_prefill(out[2],
+                                      pad=padded.shape[1] - len(r.prompt))
+            self._finish_admission(r, slot, out[0])
 
     def _admit_tick(self) -> bool:
         """One tick of admission work. Returns True iff chunked prefill
@@ -302,16 +372,23 @@ class ContinuousEngine:
 
     def _run_chunk(self, p: list, c: int):
         """Run the next ``c`` tokens of pending prefill ``p`` into its slot
-        row; returns the chunk's logits. The first chunk starts the row from
-        zero; later ones resume at its fill level."""
+        row. The first chunk starts the row from zero; later ones resume at
+        its fill level. Returns (logits, routing): ``routing`` is the
+        chunk's (stats, pad) for ``_observe_prefill`` under a monitor, else
+        None."""
         r, slot, toks, done = p
         chunk = torch.from_numpy(toks[:, done:done + c]).to(self.device)
-        logits, self.cache = self.model.prefill_chunk_slot(
+        out = self.model.prefill_chunk_slot(
             self.params, {"tokens": chunk}, self.cache, slot,
-            first=done == 0, cap=self.cache_cap)
+            first=done == 0, cap=self.cache_cap,
+            collect_moe_stats=self.monitor is not None)
         self.prefills += 1
         p[3] = done + c
-        return logits
+        # The chunk covers padded positions [done, done + c); the left pad
+        # spans [0, total - len(prompt)) of the padded prompt.
+        routing = (None if self.monitor is None
+                   else (out[2], toks.shape[1] - len(r.prompt) - done))
+        return out[0], routing
 
     def _prefill_tick(self) -> bool:
         """Serialised chunked admission (``prefill_pool=1``): start or
@@ -328,7 +405,9 @@ class ContinuousEngine:
         # chunk runs only when the policy admits it.
         if not self.admission.select(self.num_active, [self._spec(p[0], c)]):
             return False
-        logits = self._run_chunk(p, c)
+        logits, routing = self._run_chunk(p, c)
+        if routing is not None:
+            self._observe_prefill(*routing)
         if p[3] >= p[2].shape[1]:
             self._pending.pop(0)
             self._finish_admission(p[0], p[1], logits)
@@ -342,7 +421,9 @@ class ContinuousEngine:
 
         Order matters: ``_postdecode`` replaces ``self.tokens`` wholesale
         with this step's argmax, so it runs before ``_finish_admission``
-        writes a newly admitted slot's first token."""
+        writes a newly admitted slot's first token. Under a monitor the
+        decode's counts are observed first and then the chunks', as in the
+        reference."""
         while len(self._pending) < self._pool_size and self.queue:
             slot = self._free_slot()
             if slot is None:
@@ -356,16 +437,20 @@ class ContinuousEngine:
         decode = fuse_decode and self.num_active > 0
         if not picked and not decode:
             return False
-        finished = []
+        finished, routings = [], []
         for i in picked:
             p = self._pending[i]
-            logits = self._run_chunk(p, chunks[i])
+            logits, routing = self._run_chunk(p, chunks[i])
+            routings.append(routing)
             if p[3] >= p[2].shape[1]:
                 finished.append((p, logits))
         if decode:
             logits = self._decode_all()
             self.decode_steps += 1
             self._postdecode(logits)
+        for routing in routings:
+            if routing is not None:
+                self._observe_prefill(*routing)
         for p, logits in finished:
             self._pending.remove(p)
             self._finish_admission(p[0], p[1], logits)
@@ -374,12 +459,31 @@ class ContinuousEngine:
     def _decode_all(self):
         """One fixed-shape decode over every slot; vacant rows and rows of
         in-flight prefills keep their cache state and fill level
-        (``row_mask``)."""
-        mask = torch.tensor([r is not None for r in self.slots],
-                            device=self.device)
-        logits, self.cache = self.model.decode_step(
-            self.params, self.tokens, self.cache, mask)
+        (``row_mask``). Under a monitor the step's routing counts are
+        observed, vacant rows masked out."""
+        mask = np.array([r is not None for r in self.slots], bool)
+        row_mask = torch.from_numpy(mask).to(self.device)
+        if self.monitor is None:
+            logits, self.cache = self.model.decode_step(
+                self.params, self.tokens, self.cache, row_mask)
+            return logits
+        logits, self.cache, stats = self.model.decode_step_stats(
+            self.params, self.tokens, self.cache, row_mask)
+        self._observe_decode_routing(stats, mask)
         return logits
+
+    def _observe_decode_routing(self, stats, mask) -> None:
+        """Fold one decode step's (L, B, E) routing counts into the monitor
+        (host copy; ``mask`` (B,) bool marks the occupied rows)."""
+        self.monitor.observe(stats.cpu().numpy(), mask)
+
+    def _observe_prefill(self, stats, pad: int) -> None:
+        """Fold prefill routing counts (L, 1, S, E) into the monitor,
+        dropping the first ``pad`` positions (left padding routes token 0
+        every time and would skew the popularity estimate)."""
+        real = stats.cpu().numpy()[:, :, max(pad, 0):, :]
+        if real.shape[2]:
+            self.monitor.observe(real.sum(axis=2))
 
     def _postdecode(self, logits) -> None:
         """Emit one token per occupied slot; evict finished requests."""
