@@ -56,14 +56,40 @@ non-zero:
    of observing the counts, and each adoption's ms and memory are printed.
    Then the profile of a 2-tenant lockstep decode step, with and without
    the routing counts, and the two timed in alternated rounds.
+10. serve_replicated: the serve phase's model and stream, monitored. A
+   ``plan_replicated`` replication (padded to 20 physical experts with the
+   planner's best copies) of the counts the ``TrafficMonitor`` saw
+   unreplicated is (a) adopted
+   before the stream and (b) adopted mid-stream by a forced
+   ``OnlineReplanner.maybe_replicate``, then dropped with
+   ``adopt_replication(None)``. Gates: streams equal the serve phase's,
+   exact launch counts, each adoption's transient memory within one
+   widened (n_phys, d, F) slab. Printed: n_phys, the engine's weights
+   before and after, step ms replicated against unreplicated (alternated
+   decode rounds), and ``moe_gmm`` at E' = n_phys, C = 8 against its bound.
+11. chaos: a ``ChaosHarness`` over the replicated engine (4 virtual
+   devices, slot % 4): a corruption of a routed replicated hot expert
+   (repaired from a replica), of a routed unreplicated one (restored from
+   the pristine host copy), a straggler, and the loss of one device
+   (requeue, degraded re-plan adopted). Gates: streams equal the serve
+   phase's, every action seen, exact launch counts (from the hub's spans).
+   Printed: per-step checkpoint ms, restore + repair + re-run ms, the
+   pristine copy's bytes and seconds.
+12. telemetry: the serve stream without and with a ``Telemetry`` hub
+   (``block_steps=True``): streams equal, one span per step callable run,
+   JSONL and Chrome trace written under ``chiprun_out/``; step ms of both.
 
-Then a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
-Nothing of JAX is imported.
+The parity phase also holds ``moe_gmm`` at replicated group sizes and with
+NaN-poisoned experts (NaN exactly in a live poisoned group's live rows,
+zeros elsewhere in it and in a dead poisoned group). Then a ``{"kernels":
+[...]}`` line and, last, the ``{"ok": true, ...}`` line. Nothing of JAX is
+imported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -78,6 +104,10 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12         # dense tensor-core bf16
 N_LAYERS = 8                     # depth cut: full widths, 8 of 32 layers
 SLOTS, CACHE_CAP = 8, 512
+# Physical expert slots asked of plan_replicated (its total_multiple): one
+# card gains nothing from replicas, so the phases ask for the planner's 4
+# best copies even on near-balanced counts.
+PHYS_SLOTS = 20
 
 
 def emit(phase: str, **kw) -> None:
@@ -195,6 +225,16 @@ def phase_parity():
         ((2, 64, 128), 100, torch.bfloat16, [100, 70]),
         ((3, 96, 128), 40, torch.float32, [0, 40, 13]),
     ]
+    # The decode bucket over the physical groups of a replication: each
+    # hot expert's rows split over its copies (``physical_group_sizes``).
+    from repro_torch.models.moe import ReplicationSpec, physical_group_sizes
+    rep_spec = ReplicationSpec.from_counts(
+        (3, 1, 1, 2, 1, 1, 1, 1, 1, 1, 2, 1, 1, 1, 1, 2))
+    rep_sizes = physical_group_sizes(rep_spec, torch.tensor(
+        [8, 0, 3, 5, 1, 0, 2, 0, 8, 0, 6, 1, 0, 2, 0, 4],
+        dtype=torch.int32)).tolist()
+    moe_cases.append(((rep_spec.n_phys,) + full[1:], 8, torch.bfloat16,
+                      rep_sizes))
     for (e, d, f), c, dtype, sizes in moe_cases:
         x, (wg, wu, wd), gs = _moe_case(torch, gen, e, c, d, f, dtype, sizes)
         got = moe_gmm(x, wg, wu, wd, group_sizes=gs)
@@ -213,6 +253,7 @@ def phase_parity():
         if dtype == torch.bfloat16:
             results["moe_gmm"] = max(results["moe_gmm"], ab)
         del x, wg, wu, wd
+    _nan_parity(torch, gen, moe_gmm, ref, tol)
     # Fill levels: 0 (every score masked: the mean of V), 1, S, and fills
     # that are not multiples of 8, each through the serve path's entry
     # point. The first case is the served shape (2 blocks a row, each
@@ -248,6 +289,38 @@ def phase_parity():
         if dtype == torch.bfloat16:
             results["decode_attn"] = max(results["decode_attn"], ab)
     return results
+
+
+def _nan_parity(torch, gen, moe_gmm, ref, tol):
+    """Expert 1's weights NaN with 5 live rows, expert 2's NaN with none:
+    NaN must fill exactly expert 1's live rows (the kernel never reads a
+    dead group's weights and writes zeros past a group's size), as in the
+    plain version; the other rows agree within the tolerance."""
+    e, c, d, f = 4, 8, 256, 512
+    sizes = [3, 5, 0, 8]
+    for dtype in (torch.bfloat16, torch.float32):
+        x, ws, gs = _moe_case(torch, gen, e, c, d, f, dtype, sizes)
+        for w in ws:
+            w[1:3] = float("nan")
+        got = moe_gmm(x, *ws, group_sizes=gs)
+        want = ref.moe_ffn_ref(x, *ws, group_sizes=gs)
+        torch.cuda.synchronize()
+        expect = torch.zeros((e, c), dtype=torch.bool, device="cuda")
+        expect[1, :sizes[1]] = True
+        nan_rows = torch.isnan(got).any(-1)
+        exact = (torch.equal(nan_rows, expect)
+                 and bool(torch.isnan(got[1, :sizes[1]]).all())
+                 and bool((got[1, sizes[1]:] == 0).all())
+                 and bool((got[2] == 0).all())
+                 and torch.equal(torch.isnan(want).any(-1), expect))
+        ab, rel = max_errs(got[~expect], want[~expect])
+        emit("parity", kernel="moe_gmm", case="nan_poisoned_experts",
+             shape=[e, c, d, f], dtype=str(dtype), group_sizes=sizes,
+             poisoned=[1, 2], nan_exactly_in_live_rows=exact,
+             max_abs_err=ab, max_rel_err=rel, tol=tol[dtype])
+        require(exact and ab <= tol[dtype], "parity",
+                f"moe_gmm NaN case {dtype}: NaN rows exact {exact}, max "
+                f"abs err {ab}")
 
 
 def _stream(cfg, n, prompt_lo, prompt_hi, new_lo, new_hi, seed):
@@ -505,7 +578,8 @@ def phase_serve():
          slots=SLOTS, cache_cap=CACHE_CAP, admission="one-shot",
          **numbers, prefill_ms=prefill_ms, launches=launches,
          logits_finite=finite)
-    return model, params, eng, launches, numbers
+    streams = [list(r.out_tokens) for r in reqs]
+    return model, params, eng, launches, numbers, streams
 
 
 def phase_serve_chunked(model, params):
@@ -554,10 +628,8 @@ def _instrument(eng, rec):
     that recorded an event); of each ``TrafficMonitor.observe`` (numpy on
     the host); of each pool's ``_observe_decode_routing`` (the counts'
     copy to the host, which waits for the step's decodes, and the
-    observe); and of each adoption, synchronised, with the memory
-    allocated before and after it and the peak during it. The adoption resets the
-    peak counter, so the peak before it is kept in ``rec["peaks"]``."""
-    import torch
+    observe); and of each adoption (``_timed_adoption``: synchronised ms,
+    memory before and after, the transient)."""
     rp = eng.replan
     pools = eng.pools if hasattr(eng, "pools") else [eng.pool_a, eng.pool_b]
     name = "maybe_regroup" if hasattr(eng, "pools") else "maybe_replan"
@@ -578,21 +650,7 @@ def _instrument(eng, rec):
         pool._observe_decode_routing = timed(pool._observe_decode_routing,
                                              "observe_routing_ms")
     adopt = eng.adopt
-
-    def timed_adopt(plan):
-        torch.cuda.synchronize()
-        rec["peaks"].append(torch.cuda.max_memory_allocated())
-        before = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        t = time.perf_counter()
-        adopt(plan)
-        torch.cuda.synchronize()
-        rec["adopt"].append({
-            "ms": (time.perf_counter() - t) * 1e3, "before_GB": before / 1e9,
-            "after_GB": torch.cuda.memory_allocated() / 1e9,
-            "peak_GB": torch.cuda.max_memory_allocated() / 1e9,
-            "transient_bytes": torch.cuda.max_memory_allocated() - before})
-    eng.adopt = timed_adopt
+    eng.adopt = lambda plan: _timed_adoption(rec, adopt, plan)
 
 
 def _replan_numbers(rec, numbers):
@@ -808,11 +866,13 @@ def _leaves(tree):
         yield tree
 
 
-def _moe_timing(model, params, n_tokens, gen, flush):
+def _moe_timing(model, params, n_tokens, gen, flush, spec=None):
     """``moe_gmm`` on layer 0's experts over the buckets of ``n_tokens``
     random tokens routed by layer 0's router: C = ``capacity(n_tokens)``
     (8 at the decode step's 8 slots; 16, 24, 48 at a batch-1 prefill of 64,
-    128, 256 tokens). Bound: the live experts' weights, x and y once each,
+    128, 256 tokens). With a replication ``spec`` the experts are widened to
+    its ``n_phys`` physical copies and the buckets follow the shard-of-token
+    rule. Bound: the live (physical) experts' weights, x and y once each,
     and the group sizes."""
     import torch
     from repro_torch.kernels import ref
@@ -822,16 +882,22 @@ def _moe_timing(model, params, n_tokens, gen, flush):
     layer0 = params["segments"][0][0]["moe"]
     ex = {k: v[0] for k, v in layer0["experts"].items()}
     d, e, f = cfg.d_model, cfg.moe.n_experts, cfg.moe.d_ff
+    if spec is not None:
+        p2l = torch.tensor(spec.phys_to_logical, device="cuda")
+        ex = {k: v.index_select(0, p2l) for k, v in ex.items()}
     dtype = ex["w_gate"].dtype
     xt = torch.randn((n_tokens, d), generator=gen, device="cuda", dtype=dtype)
     _, idx, _ = tm.route(layer0["router"][0], xt, cfg.moe)
     cap = tm.capacity(n_tokens, cfg.moe.top_k, e, cfg.moe.capacity_factor)
     cap = align_capacity(cap, model.with_kernels().kernels.block_c)
     _, sizes, slot, keep = tm.sort_dispatch(idx, e, cap)
-    gs = torch.clamp(sizes, max=cap)
-    buf = torch.zeros((e, cap, d), dtype=dtype, device="cuda")
+    gs = tm.physical_group_sizes(spec, torch.clamp(sizes, max=cap))
+    n_phys = spec.n_phys if spec is not None else e
+    buf = torch.zeros((n_phys, cap, d), dtype=dtype, device="cuda")
     kept = keep.reshape(-1)
-    buf[idx.reshape(-1).long()[kept], slot.reshape(-1).long()[kept]] = xt[
+    pe, ps = tm.physical_slots(spec, idx.reshape(-1).long(),
+                               slot.reshape(-1).long())
+    buf[pe[kept], ps[kept]] = xt[
         torch.arange(n_tokens, device="cuda").repeat_interleave(
             cfg.moe.top_k)[kept]]
     live_rows = int(gs.sum())
@@ -839,10 +905,12 @@ def _moe_timing(model, params, n_tokens, gen, flush):
     args = (buf, ex["w_gate"], ex["w_up"], ex["w_down"])
     ms = time_ms(lambda: moe_gmm(*args, group_sizes=gs), flush)
     plain = time_ms(lambda: ref.moe_ffn_ref(*args, group_sizes=gs), flush, 5)
-    nbytes = (live_experts * 3 * d * f + 2 * buf.numel()) * buf.element_size() + e * 4
+    nbytes = ((live_experts * 3 * d * f + 2 * buf.numel())
+              * buf.element_size() + n_phys * 4)
     b_ms, b_by = bound(nbytes, 2 * 3 * d * f * live_rows)
     return {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "tokens": n_tokens, "shape": [e, cap, d, f],
+            "library_ms": None, "tokens": n_tokens,
+            "shape": [n_phys, cap, d, f], "live_experts": live_experts,
             "group_sizes": gs.tolist(), "bytes": nbytes,
             "bound_share": b_ms / ms}
 
@@ -1010,6 +1078,376 @@ def phase_profile_lockstep(engines, steps: int = 10, repeats: int = 6):
          median_ms={k: float(np.median(v)) for k, v in ms.items()})
 
 
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def _timed_adoption(rec, fn, *args):
+    """``fn(*args)`` synchronised: its ms, the memory allocated before and
+    after it, and its transient, the peak beyond the larger of the two.
+    The peak counter is reset for it, so the peak before it is kept in
+    ``rec["peaks"]``."""
+    import torch
+    torch.cuda.synchronize()
+    rec["peaks"].append(torch.cuda.max_memory_allocated())
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    peak = torch.cuda.max_memory_allocated()
+    rec["adopt"].append({
+        "ms": (time.perf_counter() - t) * 1e3, "before_GB": before / 1e9,
+        "after_GB": after / 1e9, "peak_GB": peak / 1e9,
+        "transient_bytes": peak - max(before, after)})
+    return out
+
+
+class _Stepper:
+    """What ``_serve_run`` drives: ``step`` (here another loop's, such as
+    ``ChaosHarness.step``), the engine's ``decode_steps``, and the
+    re-planner whose decisions are timed apart (None: none)."""
+
+    def __init__(self, eng, step, replan=None):
+        self.eng, self.step, self.replan = eng, step, replan
+
+    @property
+    def decode_steps(self):
+        return self.eng.decode_steps
+
+
+def _replicating_step(eng, replan, rec, drop_after: int, **plan_kw):
+    """``eng.step`` followed, after each decode step, by a forced
+    ``maybe_replicate`` on the engine's monitor until a replication is
+    adopted, and by ``adopt_replication(None)`` ``drop_after`` decode
+    steps later; both adoptions timed into ``rec``."""
+    state = {"adopted_at": None, "dropped_at": None, "spec": None}
+
+    def step():
+        before = eng.decode_steps
+        worked = eng.step()
+        now = eng.decode_steps
+        if now == before:
+            return worked
+        if state["adopted_at"] is None:
+            plan = replan.maybe_replicate(now, eng.monitor, None, **plan_kw)
+            if plan is not None:
+                _timed_adoption(rec, eng.adopt, plan)
+                state["adopted_at"], state["spec"] = now, eng.model.replication
+        elif state["dropped_at"] is None and \
+                now >= state["adopted_at"] + drop_after:
+            _timed_adoption(rec, eng.adopt_replication, None)
+            state["dropped_at"] = now
+        return worked
+    return step, state
+
+
+def _decode_rounds(fns, steps: int = 10, repeats: int = 6):
+    """Host ms per decode step (synchronised) of each of ``fns``, timed in
+    ``repeats`` rounds of ``steps`` steps, alternating which goes first;
+    returns each round's ms and the medians."""
+    import numpy as np
+    import torch
+    ms = {k: [] for k in fns}
+    for fn in fns.values():
+        fn()                                                # warm-up
+    for r in range(repeats):
+        for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(steps):
+                fns[k]()
+            torch.cuda.synchronize()
+            ms[k].append((time.perf_counter() - t) * 1e3 / steps)
+    return ms, {k: float(np.median(v)) for k, v in ms.items()}
+
+
+def _frozen_decode(eng, wrapped: bool = False):
+    """One decode step over the engine's cache with every row frozen (the
+    cache is left as it is), then the argmax copy to the host; through the
+    engine's wrapped step callable (its spans, with a hub) if ``wrapped``,
+    else the model's."""
+    import torch
+    mask = torch.zeros(SLOTS, dtype=torch.bool, device=eng.device)
+    vocab = eng.model.cfg.vocab
+    fn = eng._decode if wrapped else eng.model.decode_step
+
+    def decode():
+        logits = fn(eng.params, eng.tokens, eng.cache, mask)[0]
+        torch.argmax(logits[:, :, :vocab], dim=-1).cpu()
+    return decode
+
+
+def phase_serve_replicated(model, params, want, solo):
+    """The serve phase's model and stream through monitored engines. An
+    unreplicated run gives the routing counts; ``plan_replicated`` (the
+    card's 16 expert slots as the planner's 16 devices, padded to
+    ``PHYS_SLOTS`` physical experts with its best copies, none beyond)
+    turns them into a replication, which is (a)
+    adopted before the stream and (b) adopted mid-stream by a forced
+    ``OnlineReplanner.maybe_replicate`` (interval 16), then dropped 24
+    decode steps later. Gates: every stream equals the serve phase's,
+    exact launch counts, finite logits, each adoption's transient within
+    one widened (n_phys, d, F) slab. Returns the launches, the
+    replication and the unreplicated run's monitor."""
+    import torch
+    from repro_torch.core import AuroraPlanner, homogeneous_cluster
+    from repro_torch.models.moe import ReplicationSpec
+    from repro_torch.serving import (ContinuousEngine, EngineConfig,
+                                     OnlineReplanner, TrafficMonitor)
+    cfg = model.cfg
+    n = cfg.moe.n_experts
+    planner = AuroraPlanner(homogeneous_cluster(n))
+    plan_kw = {"tolerance": 0.0, "max_total_replicas": 0,
+               "total_multiple": PHYS_SLOTS}
+    total = {"moe_gmm": 0, "decode_attn": 0}
+    solo_ms = {k: solo[k] for k in ("step_ms_mean", "step_ms_p50",
+                                    "step_ms_p95")}
+
+    def engine():
+        return ContinuousEngine(
+            model, params, batch_slots=SLOTS, cache_cap=CACHE_CAP,
+            config=EngineConfig(kernels=True),
+            monitor=TrafficMonitor(n, model.n_moe_layers))
+
+    def run(name, eng, stepper=None):
+        reqs = _stream(cfg, 10, 64, 200, 16, 64, seed=0)
+        launches, calls, numbers = _serve_run(stepper or eng, [(eng, reqs)])
+        phase = f"serve_replicated[{name}]"
+        require(all(len(r.out_tokens) == r.max_new_tokens for r in reqs),
+                phase, "a request did not get all its tokens")
+        _check_launches(phase, launches, calls)
+        _finite_decode(phase, eng, eng.params)
+        same = [list(r.out_tokens) for r in reqs] == want
+        require(same, phase, "streams differ from the serve phase's "
+                "unreplicated stream")
+        for k in total:
+            total[k] += launches[k]
+        return launches, numbers
+
+    def slab(spec):
+        return (spec.n_phys * cfg.d_model * cfg.moe.d_ff
+                * params["embed"].element_size())
+
+    def check_adoptions(phase, rec, specs):
+        worst = max(a["transient_bytes"] for a in rec["adopt"])
+        limit = max(slab(s) for s in specs) + 2 ** 20
+        require(worst <= limit, phase, f"an adoption took {worst} bytes "
+                f"beyond the two layouts; one widened slab is {limit}")
+
+    base = engine()
+    launches, numbers = run("unreplicated", base)
+    emit("serve_replicated", ok=True, run="unreplicated", **numbers,
+         solo_step_ms=solo_ms, launches=launches, identical=True)
+    t = time.perf_counter()
+    plan = planner.plan_replicated(base.monitor.trace(), **plan_kw)
+    plan_ms = (time.perf_counter() - t) * 1e3
+    spec = ReplicationSpec.from_counts([len(h) for h in plan.replication])
+    require(spec is not None and spec.n_phys == PHYS_SLOTS,
+            "serve_replicated", f"plan_replicated gave {plan.replication}")
+
+    eng = engine()
+    rec = {"adopt": [], "peaks": []}
+    weights_before = _nbytes(eng.params)
+    _timed_adoption(rec, eng.adopt, plan)
+    weights_after = _nbytes(eng.params)
+    require(eng.model.replication == spec, "serve_replicated[a]",
+            f"adopted {eng.model.replication}, planned {spec}")
+    check_adoptions("serve_replicated[a]", rec, [spec])
+    launches, numbers = run("a_adopted_before", eng)
+    numbers["max_memory_allocated_GB"] = max(
+        rec["peaks"] + [numbers["max_memory_allocated_GB"] * 1e9]) / 1e9
+    rounds, medians = _decode_rounds({"unreplicated": _frozen_decode(base),
+                                      "replicated": _frozen_decode(eng)})
+    emit("serve_replicated", ok=True, run="a_adopted_before",
+         counts=list(spec.counts), n_phys=spec.n_phys, plan_host_ms=plan_ms,
+         engine_weights_GB_before=weights_before / 1e9,
+         engine_weights_GB_after=weights_after / 1e9, adoptions=rec["adopt"],
+         **numbers, solo_step_ms=solo_ms, launches=launches, identical=True,
+         decode_step_ms_rounds=rounds, decode_step_ms_median=medians)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    emit("timing", name="moe_gmm", step="decode_replicated",
+         counts=list(spec.counts),
+         **_moe_timing(model, params, SLOTS, gen, flush, spec))
+    monitor = base.monitor
+    del eng, base, flush
+    torch.cuda.empty_cache()
+
+    eng = engine()
+    rec = {"adopt": [], "peaks": []}
+    replan = OnlineReplanner(planner, interval=16, threshold=-1.0, warmup=1)
+    step, state = _replicating_step(eng, replan, rec, 24, **plan_kw)
+    launches, numbers = run("b_mid_stream", eng, _Stepper(eng, step, replan))
+    require(state["adopted_at"] is not None and state["dropped_at"]
+            is not None and eng.model.replication is None,
+            "serve_replicated[b]", f"adoption state {state}")
+    check_adoptions("serve_replicated[b]", rec, [state["spec"]])
+    numbers["max_memory_allocated_GB"] = max(
+        rec["peaks"] + [numbers["max_memory_allocated_GB"] * 1e9]) / 1e9
+    emit("serve_replicated", ok=True, run="b_mid_stream",
+         adopted_at=state["adopted_at"], dropped_at=state["dropped_at"],
+         counts=list(state["spec"].counts), n_phys=state["spec"].n_phys,
+         events=len(replan.events), adoptions=rec["adopt"], **numbers,
+         launches=launches, identical=True)
+    del eng
+    torch.cuda.empty_cache()
+    return total, spec, monitor
+
+
+def phase_chaos(model, params, want, spec, monitor):
+    """A ``ChaosHarness`` over an engine serving the serve stream with
+    ``spec``'s replicas live, 4 virtual devices (slot % 4), a hub counting
+    the step callables. The plan: a straggler (device 1, x4 for 40 steps),
+    the home copy of the most routed replicated expert corrupted at step 10
+    (repaired from its replica), the most routed single-copy expert at step
+    30 (restored from the pristine host copy), device 3 lost at step 50
+    (requeue, then ``plan_degraded`` on the unreplicated run's trace
+    adopted). Gates: streams equal the serve phase's, every action seen,
+    exact launch counts."""
+    import collections
+    import torch
+    from repro_torch.core import AuroraPlanner, homogeneous_cluster
+    from repro_torch.serving import (ChaosHarness, ContinuousEngine,
+                                     DeviceLoss, EngineConfig,
+                                     ExpertCorruption, FaultInjector,
+                                     FaultPlan, HealthMonitor, Straggler,
+                                     Telemetry)
+    cfg = model.cfg
+    n = cfg.moe.n_experts
+    rates = monitor.rates.sum(axis=0)
+    hot = max((e for e in range(n) if spec.counts[e] > 1),
+              key=lambda e: rates[e])
+    single = max((e for e in range(n) if spec.counts[e] == 1),
+                 key=lambda e: rates[e])
+    plan = FaultPlan((Straggler(step=4, device=1, factor=4.0, duration=40),
+                      ExpertCorruption(step=10, expert=hot),
+                      ExpertCorruption(step=30, expert=single),
+                      DeviceLoss(step=50, device=3)))
+    hub = Telemetry(block_steps=False)
+    inj = FaultInjector(plan, n_devices=4, health=HealthMonitor(
+        n_devices=4, heartbeat_timeout=2, telemetry=hub))
+    eng = ContinuousEngine(
+        model, params, batch_slots=SLOTS, cache_cap=CACHE_CAP,
+        config=EngineConfig(kernels=True, step_wrapper=inj.wrap,
+                            telemetry=hub))
+    eng.adopt_replication(spec.counts)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    harness = ChaosHarness(eng, inj, planner=AuroraPlanner(
+        homogeneous_cluster(n)), trace=monitor.trace())
+    pristine_s = time.perf_counter() - t
+    rec = {"checkpoint_ms": [], "recover_nan_ms": [], "adopt": [],
+           "peaks": []}
+
+    def timed(fn, key):
+        def wrapper(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            rec[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapper
+    eng.checkpoint = timed(eng.checkpoint, "checkpoint_ms")
+    harness._recover_nan = timed(harness._recover_nan, "recover_nan_ms")
+    adopt = eng.adopt
+    eng.adopt = lambda plan_: _timed_adoption(rec, adopt, plan_)
+    reqs = _stream(cfg, 10, 64, 200, 16, 64, seed=0)
+    launches, calls, numbers = _serve_run(_Stepper(eng, harness.step),
+                                          [(eng, reqs)])
+    phase = "chaos"
+    require(all(len(r.out_tokens) == r.max_new_tokens for r in reqs), phase,
+            "a request did not get all its tokens")
+    same = [list(r.out_tokens) for r in reqs] == want
+    require(same, phase, "streams differ from the never-faulted run's")
+    actions = collections.Counter(r["action"] for r in harness.recoveries)
+    expected = {"repaired-from-replica", "restored-pristine",
+                "requeued+replanned", "observed"}
+    require(expected <= set(actions), phase,
+            f"recovery actions {dict(actions)}, expected {sorted(expected)}")
+    spans = collections.Counter(s.name for s in hub.spans)
+    want_l = {"decode_attn": spans["decode_step"] * N_LAYERS,
+              "moe_gmm": (spans["decode_step"] + spans["prefill"])
+              * N_LAYERS}
+    require(launches == want_l, phase,
+            f"launch counts {launches} != expected {want_l} (spans)")
+    recoveries = [{"action": r["action"], "kind": r["event"].kind,
+                   "step": r["event"].step, "device": r["event"].device,
+                   **{k: r[k] for k in ("bad_phys", "requeued", "survivors")
+                      if k in r}} for r in harness.recoveries]
+    emit("chaos", ok=True, faults=[repr(f) for f in plan.faults],
+         replication=list(spec.counts), hot_expert=hot,
+         single_expert=single, recoveries=recoveries,
+         actions=dict(actions), final_replication=(
+             list(eng.model.replication.counts)
+             if eng.model.replication is not None else None),
+         pristine_bytes=harness.pristine_bytes, pristine_s=pristine_s,
+         **_percentiles(rec["checkpoint_ms"], "checkpoint_ms"),
+         restore_repair_rerun_ms=rec["recover_nan_ms"],
+         adoptions=rec["adopt"], **numbers, launches=launches,
+         spans=dict(spans), identical=same)
+    del eng, harness, adopt
+    gc.collect()                      # the timed methods close cycles
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_telemetry(model, params, want):
+    """The serve stream without and with a ``Telemetry`` hub
+    (``block_steps=True``), alternated (without, with, with, without).
+    Gates: streams equal the serve phase's, exact launch counts, one span
+    per step callable run (prefill, decode_step) and per engine step. The
+    last hub's JSONL and Chrome trace go to ``chiprun_out/``. Then frozen
+    decode steps through each engine's step callable, with and without
+    the hub's span wrapper, in alternated rounds."""
+    import collections
+    from repro_torch.serving import ContinuousEngine, EngineConfig, Telemetry
+    cfg = model.cfg
+    total = {"moe_gmm": 0, "decode_attn": 0}
+    step_ms = {"no_hub": [], "hub": []}
+    engines = {}
+    for name in ("no_hub", "hub", "hub", "no_hub"):
+        hub = Telemetry(block_steps=True) if name == "hub" else None
+        eng = ContinuousEngine(model, params, batch_slots=SLOTS,
+                               cache_cap=CACHE_CAP,
+                               config=EngineConfig(kernels=True,
+                                                   telemetry=hub))
+        reqs = _stream(cfg, 10, 64, 200, 16, 64, seed=0)
+        launches, calls, numbers = _serve_run(eng, [(eng, reqs)])
+        phase = f"telemetry[{name}]"
+        _check_launches(phase, launches, calls)
+        same = [list(r.out_tokens) for r in reqs] == want
+        require(same, phase, "streams differ from the serve phase's")
+        for k in total:
+            total[k] += launches[k]
+        step_ms[name].append(numbers["step_ms_mean"])
+        extra = {}
+        if hub is not None:
+            spans = collections.Counter(s.name for s in hub.spans)
+            exact = (spans["prefill"] == calls["prefill_calls"]
+                     and spans["decode_step"] == calls["decode_steps"]
+                     and spans["engine_step"] == numbers["engine_steps"])
+            require(exact, phase, f"spans {dict(spans)} for {calls} and "
+                    f"{numbers['engine_steps']} engine steps")
+            extra = {"spans": dict(spans), "events": dict(hub.bus.counts),
+                     "metrics": sorted(hub.snapshot()["metrics"])}
+            base = os.path.join(ROOT, "chiprun_out", "telemetry_serve")
+            os.makedirs(os.path.dirname(base), exist_ok=True)
+            hub.write_jsonl(base + ".jsonl")
+            hub.write_chrome_trace(base + ".trace.json")
+            extra["written"] = [base + ".jsonl", base + ".trace.json"]
+        emit("telemetry", ok=True, run=name, **numbers, launches=launches,
+             identical=same, **extra)
+        engines[name] = eng
+    rounds, medians = _decode_rounds(
+        {k: _frozen_decode(e, wrapped=True) for k, e in engines.items()})
+    emit("telemetry", step_ms_mean=step_ms, decode_call_ms_rounds=rounds,
+         decode_call_ms_median=medians)
+    return total
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke.py runs from the root of a checkout of the repo "
@@ -1020,7 +1458,7 @@ def main() -> int:
     phase_build()
     errs = phase_parity()
     phase_reference()
-    model, params, eng, launches, solo = phase_serve()
+    model, params, eng, launches, solo, streams = phase_serve()
     chunked = phase_serve_chunked(model, params)
     launches = {k: launches[k] + chunked[k] for k in launches}
     rows = phase_timing(model, params, eng, launches, errs)
@@ -1030,8 +1468,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     colocated, engines = phase_serve_colocated(model, params, solo)
     phase_profile_lockstep(engines)
+    del engines                       # tenants B and C
+    gc.collect()                      # instrumented engines hold cycles
+    torch.cuda.empty_cache()
+    replicated, spec, monitor = phase_serve_replicated(
+        model, params, streams, solo)
+    chaos = phase_chaos(model, params, streams, spec, monitor)
+    traced = phase_telemetry(model, params, streams)
     for r in rows:
-        r["launches"] += colocated[r["name"]]
+        r["launches"] += sum(part[r["name"]] for part in (
+            colocated, replicated, chaos, traced))
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "launches",

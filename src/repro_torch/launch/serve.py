@@ -28,6 +28,10 @@ engine steps) and switch admission to ``EdfAdmission`` over the same chunk
 and budget. ``--kernels`` serves through the hand-written CUDA
 kernels (their plain PyTorch versions on ``--device cpu``). ``--n-layers``
 cuts the depth of a full-width config so its weights fit one card.
+``--trace-out BASE`` records telemetry and writes BASE.jsonl (spans and
+events) and BASE.trace.json (Chrome trace-event JSON, for Perfetto) on
+exit; ``--metrics-out PATH`` writes the final metrics snapshot as JSON.
+Both are written on every exit path, Ctrl-C included.
 Weights are random, from seed 0.
 """
 
@@ -84,7 +88,46 @@ def main(argv=None) -> int:
                     help="serve through the CUDA kernel path (sort-based "
                          "MoE dispatch + moe_gmm, decode_attn)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--trace-out", default=None, metavar="BASE",
+                    help="record telemetry and write BASE.jsonl (structured "
+                         "spans + events) and BASE.trace.json (Chrome "
+                         "trace-event JSON: open in Perfetto) on exit")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the final metrics snapshot as JSON on exit "
+                         "(also on Ctrl-C)")
     args = ap.parse_args(argv)
+
+    telemetry = None
+    if args.trace_out or args.metrics_out:
+        from repro_torch.serving import Telemetry
+        telemetry = Telemetry()
+    # The flush runs on every exit path (clean return, SystemExit, Ctrl-C),
+    # so a run killed mid-stream still leaves its trace and metrics.
+    try:
+        return _serve(args, telemetry)
+    except KeyboardInterrupt:
+        print("\ninterrupted")
+        return 130
+    finally:
+        _flush_telemetry(telemetry, args)
+
+
+def _flush_telemetry(telemetry, args) -> None:
+    if telemetry is None:
+        return
+    if args.trace_out:
+        telemetry.write_jsonl(args.trace_out + ".jsonl")
+        telemetry.write_chrome_trace(args.trace_out + ".trace.json")
+        print(f"trace: {args.trace_out}.jsonl + {args.trace_out}.trace.json"
+              f" (open the .trace.json in Perfetto / chrome://tracing)")
+    if args.metrics_out:
+        import json
+        with open(args.metrics_out, "w") as f:
+            json.dump(telemetry.snapshot(), f, indent=2, sort_keys=True)
+        print(f"metrics snapshot: {args.metrics_out}")
+
+
+def _serve(args, telemetry) -> int:
 
     from repro_torch.configs import get_config
     from repro_torch.models import Model
@@ -101,7 +144,7 @@ def main(argv=None) -> int:
                 chunk=args.prefill_chunk or args.prompt_len,
                 budget=args.step_budget, bucket_policy=args.bucket_policy),
             prefill_pool=args.prefill_pool, kernels=args.kernels,
-            tenants=(tenant,))
+            tenants=(tenant,), telemetry=telemetry)
         print(f"SLO targets (engine steps): ttft_p95<="
               f"{args.ttft_slo if args.ttft_slo is not None else 'none'} "
               f"tpot_p95<="
@@ -113,7 +156,7 @@ def main(argv=None) -> int:
                               step_token_budget=args.step_budget,
                               bucket_policy=args.bucket_policy,
                               prefill_pool=args.prefill_pool,
-                              kernels=args.kernels)
+                              kernels=args.kernels, telemetry=telemetry)
 
     def load(arch: str):
         cfg = get_config(arch)

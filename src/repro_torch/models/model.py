@@ -1,7 +1,10 @@
 """Top-level model facade (port of ``repro/models/model.py``, serving API).
 
 ``Model(cfg)`` runs on the card by default and raises if there is none;
-only an explicit ``device="cpu"`` runs on the CPU.
+only an explicit ``device="cpu"`` runs on the CPU. ``replication`` is the
+physical layout of the params' MoE expert leaves (the counterpart of the
+reference's ``ParallelContext.moe_replication``); every call passes it to
+the MoE layers.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ import torch
 
 from . import transformer as tf
 from .layers import KernelConfig
+from .moe import ReplicationSpec
 
 
 def resolve_device(device) -> torch.device:
@@ -28,6 +32,7 @@ class Model:
     cfg: object
     device: object = "cuda"
     kernels: KernelConfig | None = None
+    replication: ReplicationSpec | None = None
 
     def __post_init__(self):
         object.__setattr__(self, "device", resolve_device(self.device))
@@ -68,7 +73,8 @@ class Model:
         out = tf.forward(params, self.cfg, tokens=inputs["tokens"],
                          mode="prefill", cache=cache, kernels=self.kernels,
                          continuation=continuation,
-                         collect_moe_stats=collect_moe_stats)
+                         collect_moe_stats=collect_moe_stats,
+                         replication=self.replication)
         if collect_moe_stats:
             return out[0], cache, out[2]
         return out[0], cache
@@ -80,7 +86,8 @@ class Model:
         discarded)."""
         logits, _ = tf.forward(params, self.cfg, tokens=token, mode="decode",
                                cache=cache, kernels=self.kernels,
-                               row_mask=row_mask)
+                               row_mask=row_mask,
+                               replication=self.replication)
         return logits, cache
 
     def decode_step_stats(self, params, token, cache, row_mask=None):
@@ -89,7 +96,8 @@ class Model:
         ``serving.monitor.TrafficMonitor``)."""
         logits, _, stats = tf.forward(
             params, self.cfg, tokens=token, mode="decode", cache=cache,
-            kernels=self.kernels, row_mask=row_mask, collect_moe_stats=True)
+            kernels=self.kernels, row_mask=row_mask, collect_moe_stats=True,
+            replication=self.replication)
         return logits, cache, stats[:, :, 0, :]          # S == 1 at decode
 
     def prefill_slot(self, params, inputs, cache, slot: int, *, cap: int,

@@ -9,17 +9,244 @@
   the reference's bucketed branch, the one it takes on a TPU; the CPU-only
   compact branch is not ported.
 
-Replication and the expert-parallel paths are not ported yet.
+Hot-expert replication (``ReplicationSpec``): routing, capacity and drops
+stay in the LOGICAL frame; only the bucket coordinates move, rank r of
+expert e landing on physical slot ``base[e] + r % counts[e]`` at position
+``r // counts[e]``. Replicas are byte-identical copies, so the routed
+function is unchanged. The expert-parallel paths are not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 
+from ..core.errors import FaultError
 from ..kernels import ops as kops
 from ..kernels.moe_gmm import align_capacity
 from ..kernels.ref import act_fn
 from .layers import KernelConfig, ffn_apply
+
+
+# ---------------------------------------------------------------------------
+# Expert replication (hot-expert copies; placement-only)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ReplicationSpec:
+    """Physical layout of replicated experts.
+
+    ``counts[e]`` copies of logical expert e sit contiguously in the widened
+    physical expert axis (slots ``base[e] .. base[e] + counts[e] - 1``, all
+    byte-identical). Routing stays logical; each kept (token, expert, rank r)
+    lands on replica ``r % counts[e]`` at bucket position ``r // counts[e]``
+    (the shard-of-token rule). Hashable, so it can sit on the frozen
+    ``Model``."""
+
+    counts: tuple[int, ...]
+
+    def __post_init__(self):
+        if not self.counts or any(int(c) < 1 for c in self.counts):
+            raise ValueError(f"replica counts must be >= 1, "
+                             f"got {self.counts}")
+
+    @property
+    def n_logical(self) -> int:
+        return len(self.counts)
+
+    @property
+    def n_phys(self) -> int:
+        return sum(self.counts)
+
+    @property
+    def base(self) -> tuple[int, ...]:
+        """First physical slot of each logical expert."""
+        out, acc = [], 0
+        for c in self.counts:
+            out.append(acc)
+            acc += c
+        return tuple(out)
+
+    @property
+    def phys_to_logical(self) -> tuple[int, ...]:
+        return tuple(e for e, c in enumerate(self.counts) for _ in range(c))
+
+    @property
+    def is_identity(self) -> bool:
+        return all(c == 1 for c in self.counts)
+
+    @classmethod
+    def from_counts(cls, counts) -> "ReplicationSpec | None":
+        """None for the identity layout (no replication)."""
+        spec = cls(counts=tuple(int(c) for c in counts))
+        return None if spec.is_identity else spec
+
+
+def _map_experts(fn, tree, inside: bool = False):
+    """``tree`` rebuilt with ``fn(leaf)`` applied to every leaf under an
+    "experts" key; every other leaf is shared, not copied. An expert leaf
+    is a stacked tensor or, once an engine has re-laid it out
+    (``relayout_moe_params``), a list of per-layer tensors."""
+    if isinstance(tree, dict):
+        return {k: _map_experts(fn, v, inside or k == "experts")
+                for k, v in tree.items()}
+    if inside and (torch.is_tensor(tree) or isinstance(tree, list)):
+        return fn(tree)
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_experts(fn, v, inside) for v in tree)
+    return tree
+
+
+def expert_leaves(params) -> list:
+    """Every expert leaf of ``params``, in tree order."""
+    out = []
+
+    def keep(leaf):
+        out.append(leaf)
+        return leaf
+    _map_experts(keep, params)
+    return out
+
+
+def expert_slabs(leaf, axis: int = 1):
+    """The per-layer views of an expert leaf, each with the expert axis
+    first: the leaf itself for a standalone layer (``axis=0``), its layer
+    slices for a stacked (layer, E, ...) leaf, or its list entries."""
+    if isinstance(leaf, list):
+        return leaf
+    return [leaf] if axis == 0 else list(leaf.unbind(0))
+
+
+def _gather_experts(params, slots, axis: int):
+    """A new tree whose stacked expert leaves hold experts ``slots`` along
+    ``axis``."""
+    index = torch.as_tensor(slots, dtype=torch.long)
+    return _map_experts(
+        lambda leaf: leaf.index_select(axis, index.to(leaf.device)), params)
+
+
+def replicate_moe_params(params, spec: ReplicationSpec, axis: int = 1):
+    """Widen every MoE layer's expert leaves to ``spec.n_phys`` physical
+    experts (replicas are gathered copies). Functional: returns a new tree,
+    the caller's leaves are never written. Stacked-segment leaves are
+    (layer_count, E, ...), so the expert axis defaults to 1; pass
+    ``axis=0`` for a standalone layer dict. Routers are untouched: routing
+    stays logical."""
+    return _gather_experts(params, spec.phys_to_logical, axis)
+
+
+def dereplicate_moe_params(params, spec: ReplicationSpec, axis: int = 1):
+    """Exact inverse of ``replicate_moe_params``: each logical expert's home
+    copy (replicas are byte-identical, so nothing is lost). Functional."""
+    return _gather_experts(params, spec.base, axis)
+
+
+def relayout_moe_params(params, old: ReplicationSpec | None,
+                        new: ReplicationSpec | None, n_logical: int):
+    """Move every expert leaf from layout ``old`` to layout ``new`` (None is
+    the identity) one (layer, weight kind) slab at a time, for an engine's
+    adoption. Returns a new tree whose expert leaves are lists of per-layer
+    tensors. A stacked leaf is only read (it may be the caller's); a list
+    leaf is the engine's own, so its entries are replaced as they go and
+    each old slab is freed before the next is built: the memory beyond the
+    two layouts is at most one slab. Physical slot p of ``new`` takes the
+    home copy of its logical expert in ``old``."""
+    old_base = old.base if old is not None else tuple(range(n_logical))
+    p2l = new.phys_to_logical if new is not None else range(n_logical)
+    index = torch.as_tensor([old_base[e] for e in p2l], dtype=torch.long)
+
+    def move(leaf):
+        if not isinstance(leaf, list):
+            return [t.index_select(0, index.to(t.device))
+                    for t in leaf.unbind(0)]
+        for i, t in enumerate(leaf):
+            leaf[i] = t.index_select(0, index.to(t.device))
+        return leaf
+    return _map_experts(move, params)
+
+
+@functools.lru_cache(maxsize=64)
+def _spec_tensors(spec: ReplicationSpec, device: torch.device):
+    """(base, counts, phys_to_logical) as int64 tensors on ``device``, made
+    once per layout and device: a copy from pageable host memory to the
+    card waits for the stream, so the dispatch must not make one per layer.
+    Read-only."""
+    return tuple(torch.tensor(v, dtype=torch.long, device=device)
+                 for v in (spec.base, spec.counts, spec.phys_to_logical))
+
+
+def replica_arrays(spec: ReplicationSpec, device=None):
+    """(base (E,), counts (E,)) as int64 tensors for dispatch remaps
+    (cached per device; read-only)."""
+    return _spec_tensors(spec, torch.device(device or "cpu"))[:2]
+
+
+def shrink_replication(spec: ReplicationSpec | None,
+                       drop_phys) -> "ReplicationSpec | None":
+    """Failover shrink: the physical slots in ``drop_phys`` are gone; the
+    layout with those copies removed. ``FaultError`` when an expert would
+    lose its last copy (or nothing is replicated). None when the survivor
+    layout is the identity."""
+    if spec is None:
+        raise FaultError(
+            f"cannot drop physical expert slots {sorted(set(drop_phys))}: "
+            "no replication is active, every slot is a last copy")
+    drop = {int(p) for p in drop_phys}
+    for p in drop:
+        if not 0 <= p < spec.n_phys:
+            raise FaultError(f"physical slot {p} out of "
+                             f"range({spec.n_phys})")
+    p2l = spec.phys_to_logical
+    counts = list(spec.counts)
+    for p in drop:
+        counts[p2l[p]] -= 1
+    for e, c in enumerate(counts):
+        if c < 1:
+            raise FaultError(
+                f"expert {e} would lose its last copy (dropping "
+                f"{sorted(drop)} from counts {spec.counts}) — failover "
+                "is only lossless while one replica survives")
+    return ReplicationSpec.from_counts(counts)
+
+
+def repair_moe_params(params, spec: ReplicationSpec | None, bad_phys,
+                      axis: int = 1):
+    """Overwrite corrupt physical expert slots from a healthy replica of the
+    same logical expert, IN PLACE (an engine repairs its own leaves without
+    a second copy of the weights); returns ``params``. Byte-identical to
+    the reference's gather. ``FaultError``, before anything is written,
+    when some logical expert has no healthy copy left (always so without
+    replication)."""
+    bad = {int(p) for p in bad_phys}
+    if spec is None:
+        if bad:
+            raise FaultError(
+                f"cannot repair physical slots {sorted(bad)}: no "
+                "replication is active, there is no healthy copy to clone")
+        return params
+    for p in bad:
+        if not 0 <= p < spec.n_phys:
+            raise FaultError(f"physical slot {p} out of "
+                             f"range({spec.n_phys})")
+    base, counts = spec.base, spec.counts
+    src = {}
+    for p in sorted(bad):
+        e = spec.phys_to_logical[p]
+        healthy = [q for q in range(base[e], base[e] + counts[e])
+                   if q not in bad]
+        if not healthy:
+            raise FaultError(
+                f"expert {e} has no healthy copy left among physical slots "
+                f"{list(range(base[e], base[e] + counts[e]))}")
+        src[p] = healthy[0]
+    with torch.no_grad():
+        for leaf in expert_leaves(params):
+            for t in expert_slabs(leaf, axis):
+                for p, q in src.items():
+                    t[p].copy_(t[q])
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -130,10 +357,37 @@ def _combine(xt, picked, gates, t_f):
 # Dense (reference) dispatch
 # ---------------------------------------------------------------------------
 
-def moe_apply_dense(p, x, moe, act: str, return_counts: bool = False):
+def physical_slots(spec: ReplicationSpec | None, e_f, s_f):
+    """Logical (expert, rank) -> physical (slot, bucket position): rank r
+    of expert e lands on replica ``r % counts[e]`` at position
+    ``r // counts[e]`` (collision-free, adds no drops)."""
+    if spec is None:
+        return e_f, s_f
+    base, reps, _ = _spec_tensors(spec, e_f.device)
+    r_f = reps[e_f]
+    return base[e_f] + s_f % r_f, s_f // r_f
+
+
+def physical_group_sizes(spec: ReplicationSpec | None, group_sizes):
+    """Logical (E,) kept-row counts -> (n_phys,) counts: replica j of an
+    expert with r copies holds the ranks congruent to j mod r below the logical
+    group size, ``max(0, ceil((g - j) / r))`` of them."""
+    if spec is None:
+        return group_sizes
+    base, reps, p2l = _spec_tensors(spec, group_sizes.device)
+    j = torch.arange(spec.n_phys, device=group_sizes.device) - base[p2l]
+    r_p = reps[p2l]
+    return torch.clamp((group_sizes[p2l].long() - j + r_p - 1) // r_p,
+                       min=0).to(group_sizes.dtype)
+
+
+def moe_apply_dense(p, x, moe, act: str, return_counts: bool = False,
+                    replication: ReplicationSpec | None = None):
     """Reference MoE layer. x: (..., d) -> (y, aux[, counts]).
     ``return_counts=True`` appends the (..., E) float32 routed-choice
-    histogram (``routed_counts``)."""
+    histogram (``routed_counts``, logical frame). Under ``replication`` the
+    expert leaves hold ``n_phys`` physical experts; routing, capacity and
+    drops are those of the logical frame."""
     shape = x.shape
     d = shape[-1]
     xt = x.reshape(-1, d)
@@ -142,8 +396,12 @@ def moe_apply_dense(p, x, moe, act: str, return_counts: bool = False):
     cap = capacity(t, moe.top_k, moe.n_experts, moe.capacity_factor)
     slot, keep = dispatch_indices(idx, moe.n_experts, cap)
     t_f = torch.arange(t, device=x.device)[:, None].expand(idx.shape).reshape(-1)
-    e_f, s_f, keep_f = idx.reshape(-1).long(), slot.reshape(-1).long(), keep.reshape(-1)
-    buf = torch.zeros((moe.n_experts, cap, d), dtype=xt.dtype, device=x.device)
+    e_f, s_f = physical_slots(replication, idx.reshape(-1).long(),
+                              slot.reshape(-1).long())
+    keep_f = keep.reshape(-1)
+    n_phys = (replication.n_phys if replication is not None
+              else moe.n_experts)
+    buf = torch.zeros((n_phys, cap, d), dtype=xt.dtype, device=x.device)
     safe_s = torch.where(keep_f, s_f, cap - 1)
     contrib = torch.where(keep_f[:, None], xt[t_f], 0.0)
     buf.index_put_((e_f, safe_s), contrib, accumulate=True)
@@ -160,7 +418,8 @@ def moe_apply_dense(p, x, moe, act: str, return_counts: bool = False):
 # ---------------------------------------------------------------------------
 
 def moe_apply_kernel(p, x, moe, act: str, kernels: KernelConfig | None = None,
-                     return_counts: bool = False):
+                     return_counts: bool = False,
+                     replication: ReplicationSpec | None = None):
     """Kernelized MoE layer, same routing/capacity/drops as the dense
     reference. x: (..., d) -> (y, aux[, counts]); the counts come from the
     routing ``idx``, as on the dense path.
@@ -168,7 +427,9 @@ def moe_apply_kernel(p, x, moe, act: str, kernels: KernelConfig | None = None,
     Kept assignments are scattered, in expert-sorted order, into buckets of
     ``align_capacity(cap, block_c)`` rows; unfilled rows point at a zero pad
     row. Dropped ranks are filtered out explicitly (the reference's
-    out-of-range ``mode="drop"`` scatter has no PyTorch counterpart).
+    out-of-range ``mode="drop"`` scatter has no PyTorch counterpart). Under
+    ``replication`` routing, capacity and drops stay logical and the kernel
+    gets all ``n_phys`` physical groups (``physical_group_sizes``).
     """
     shape = x.shape
     d = shape[-1]
@@ -181,28 +442,31 @@ def moe_apply_kernel(p, x, moe, act: str, kernels: KernelConfig | None = None,
 
     order, sizes, slot, keep = sort_dispatch(idx, e, cap)
     keep_f = keep.reshape(-1)
-    e_f = idx.reshape(-1).long()
-    s_f = slot.reshape(-1).long()
+    pe_f, ps_f = physical_slots(replication, idx.reshape(-1).long(),
+                                slot.reshape(-1).long())
+    n_phys = replication.n_phys if replication is not None else e
     t_f = torch.arange(t, device=x.device)[:, None].expand(t, k).reshape(-1)
     experts = p["experts"]
 
     cap_pad = align_capacity(cap, kc.block_c)
     order_l = order.long()
-    dest = e_f[order_l] * cap_pad + s_f[order_l]
+    dest = pe_f[order_l] * cap_pad + ps_f[order_l]
     kept = keep_f[order_l]
     # Filtered without a host sync: dropped ranks write to one extra row
     # past the buckets, which is cut off below.
-    dest = torch.where(kept, dest, e * cap_pad)
-    src = torch.full((e * cap_pad + 1,), t, dtype=torch.long, device=x.device)
+    dest = torch.where(kept, dest, n_phys * cap_pad)
+    src = torch.full((n_phys * cap_pad + 1,), t, dtype=torch.long,
+                     device=x.device)
     src[dest] = order_l // k
     x_pad = torch.cat([xt, xt.new_zeros((1, d))], dim=0)
-    buf = x_pad[src[:-1]].reshape(e, cap_pad, d)
-    group_sizes = torch.clamp(sizes, max=cap)
+    buf = x_pad[src[:-1]].reshape(n_phys, cap_pad, d)
+    group_sizes = physical_group_sizes(replication,
+                                       torch.clamp(sizes, max=cap))
     out_buf = kops.moe_ffn(buf, experts["w_gate"], experts["w_up"],
                            experts["w_down"], act=act,
                            group_sizes=group_sizes)
-    safe = torch.where(keep_f, e_f * cap_pad + s_f, 0)
-    picked = out_buf.reshape(e * cap_pad, d)[safe]
+    safe = torch.where(keep_f, pe_f * cap_pad + ps_f, 0)
+    picked = out_buf.reshape(n_phys * cap_pad, d)[safe]
     picked = torch.where(keep_f[:, None], picked, 0.0)
     y = _combine(xt, picked, gates, t_f)
     if "shared" in p:
@@ -211,9 +475,13 @@ def moe_apply_kernel(p, x, moe, act: str, kernels: KernelConfig | None = None,
 
 
 def moe_apply(p, x, moe, act: str, kernels: KernelConfig | None = None,
-              return_counts: bool = False):
-    """Kernel dispatch when a ``KernelConfig`` is attached, else dense."""
+              return_counts: bool = False,
+              replication: ReplicationSpec | None = None):
+    """Kernel dispatch when a ``KernelConfig`` is attached, else dense;
+    ``replication`` is the physical layout of ``p``'s expert leaves."""
     if kernels is not None:
         return moe_apply_kernel(p, x, moe, act, kernels,
-                                return_counts=return_counts)
-    return moe_apply_dense(p, x, moe, act, return_counts=return_counts)
+                                return_counts=return_counts,
+                                replication=replication)
+    return moe_apply_dense(p, x, moe, act, return_counts=return_counts,
+                           replication=replication)

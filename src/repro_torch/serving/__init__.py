@@ -1,8 +1,11 @@
 """Serving: the continuous engine, its configuration and admission
-policies, the colocated and multi-tenant engines, and live traffic
-monitoring with online re-planning and re-grouping."""
+policies, the colocated and multi-tenant engines, live traffic monitoring
+with online re-planning, re-grouping and re-replication, fault tolerance
+(seedable fault injection, health monitoring, recovery) and the telemetry
+hub (metrics registry, structured spans, bounded event bus:
+``EngineConfig(telemetry=Telemetry())``)."""
 
-from ..core.errors import PlanError
+from ..core.errors import FaultError, PlanError
 from .config import (AdmissionPolicy, EdfAdmission, EngineConfig,
                      FifoAdmission, LengthBucketedAdmission, RequestSpec,
                      ShedEvent, TenantSpec, TokenBudgetAdmission,
@@ -12,14 +15,23 @@ from .colocated import (ColocatedContinuousEngine, ColocatedEngine,
                         MultiTenantContinuousEngine, apply_pairing,
                         build_lockstep_step, inverse_pair, reseat_pairing)
 from .monitor import OnlineReplanner, ReplanEvent, TrafficMonitor
-from .events import RingBuffer
+from .health import FaultEvent, HealthMonitor
+from .faults import (ChaosHarness, DeviceLoss, ExpertCorruption,
+                     FaultInjector, FaultPlan, Straggler)
+from .events import BusEvent, EventBus, RingBuffer
+from .telemetry import (MetricsRegistry, SpanRecord, Telemetry,
+                        record_adoption)
 
-__all__ = ["AdmissionPolicy", "ColocatedContinuousEngine", "ColocatedEngine",
-           "ContinuousEngine", "EdfAdmission", "EngineConfig",
-           "FifoAdmission", "LengthBucketedAdmission",
+__all__ = ["AdmissionPolicy", "BusEvent", "ChaosHarness",
+           "ColocatedContinuousEngine", "ColocatedEngine",
+           "ContinuousEngine", "DeviceLoss", "EdfAdmission", "EngineConfig",
+           "EventBus", "ExpertCorruption", "FaultError", "FaultEvent",
+           "FaultInjector", "FaultPlan", "FifoAdmission", "HealthMonitor",
+           "LengthBucketedAdmission", "MetricsRegistry",
            "MultiTenantContinuousEngine", "OnlineReplanner", "PlanError",
            "ReplanEvent", "Request", "RequestSpec", "RingBuffer", "ShedEvent",
-           "TenantSpec", "TokenBudgetAdmission", "TrafficMonitor",
-           "apply_pairing", "build_lockstep_step", "inverse_pair",
-           "make_bucketer", "poisson_requests", "reseat_pairing",
+           "SpanRecord", "Straggler", "Telemetry", "TenantSpec",
+           "TokenBudgetAdmission", "TrafficMonitor", "apply_pairing",
+           "build_lockstep_step", "inverse_pair", "make_bucketer",
+           "poisson_requests", "record_adoption", "reseat_pairing",
            "scale_admission", "serve_stream"]

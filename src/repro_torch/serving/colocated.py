@@ -19,7 +19,12 @@ Re-seating a pairing (``reseat_pairing``) works IN PLACE: the old and the
 new pairing are composed into one permutation and each stacked expert leaf
 is permuted one layer slice at a time, so the transient stays at one
 (E, d, F) slab. A params tree handed to an engine is the engine's to
-re-seat. The reference's telemetry hooks and step wrappers are not ported.
+re-seat.
+
+The lockstep decode is a step callable like the pools' own: it passes
+through ``EngineConfig.step_wrapper`` and, with a telemetry hub, becomes a
+``lockstep_decode`` span inside a ``lockstep_step`` span; adoptions are
+recorded on the hub, which the pools and the re-planner share.
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ import torch
 from ..core.errors import PlanError
 from ..models import Model
 from .config import EngineConfig, TenantSpec, scale_admission
+from .engine import wrap_step_callable
+from .telemetry import record_adoption
 
 __all__ = ["ColocatedContinuousEngine", "ColocatedEngine",
            "MultiTenantContinuousEngine", "apply_pairing",
@@ -59,9 +66,13 @@ def _map_leaves(fn, tree, names=()):
     """``fn(leaf, axis)`` over every leaf, rebuilt into a tree of the same
     structure. ``axis`` is the expert axis of the leaves that carry one
     (stacked expert weights (count, E, ...): 1; a router (count, d, E): its
-    last), else None."""
+    last), else None. An expert leaf that an engine re-laid out as a list
+    of per-layer tensors (``moe.relayout_moe_params``) is one leaf, of
+    axis 1."""
     if isinstance(tree, dict):
         return {k: _map_leaves(fn, v, names + (k,)) for k, v in tree.items()}
+    if isinstance(tree, list) and "experts" in names:
+        return fn(tree, 1)
     if isinstance(tree, (tuple, list)):
         return type(tree)(_map_leaves(fn, v, names) for v in tree)
     if "experts" in names:
@@ -126,9 +137,9 @@ def reseat_pairing(params, old_pair, new_pair, cfg):
 
     def permute(leaf, axis):
         if axis is not None:
-            perm = _index(composed, leaf)
-            for layer in leaf:                   # (E, ...) or (d, E) views
-                layer.copy_(layer.index_select(axis - 1, perm))
+            for layer in leaf:                   # (E, ...) or (d, E) slabs
+                layer.copy_(layer.index_select(axis - 1,
+                                               _index(composed, layer)))
         return leaf
 
     with torch.no_grad():
@@ -158,6 +169,13 @@ def build_lockstep_step(models: list[Model], collect_stats: bool):
                     in zip(models, params, tokens, caches, masks)]
             return [o[0] for o in outs], [o[1] for o in outs]
     return step
+
+
+def _share_hub(replan, config: EngineConfig) -> None:
+    """The re-planner publishes on the engine's hub unless it has one."""
+    if replan is not None and config.telemetry is not None \
+            and getattr(replan, "telemetry", None) is None:
+        replan.telemetry = config.telemetry
 
 
 def _row_masks(pools):
@@ -279,8 +297,11 @@ class ColocatedContinuousEngine:
             model_b, params_b, batch_slots, cache_cap,
             config=_pool_config_for(config, self.tenant_specs[1]),
             monitor=self.monitor_b)
-        self._step = build_lockstep_step(
-            [model_a, model_b], collect_stats=replan is not None)
+        self._telemetry = config.telemetry
+        _share_hub(replan, config)
+        self._step = wrap_step_callable(build_lockstep_step(
+            [model_a, model_b], collect_stats=replan is not None),
+            "lockstep_decode", config)
         self.decode_steps = 0
 
     @property
@@ -297,6 +318,8 @@ class ColocatedContinuousEngine:
         if self.monitor_b is not None:
             self.monitor_b.slot_to_expert = list(new_pair)
         self.plan = plan
+        record_adoption(self._telemetry, "pairing", step=self.decode_steps,
+                        pair=new_pair)
 
     def _maybe_replan(self) -> None:
         new = self.replan.maybe_replan(self.decode_steps, self.monitor_a,
@@ -309,6 +332,13 @@ class ColocatedContinuousEngine:
         observations, both pools' bookkeeping, then re-planning (the
         reference's order: vacant slots' stale tokens take part in MoE
         capacity, so the sub-calls keep it). Returns False when idle."""
+        tel = self._telemetry
+        if tel is None or not tel.enabled:
+            return self._step_impl()
+        with tel.span("lockstep_step", step=self.decode_steps):
+            return self._step_impl()
+
+    def _step_impl(self) -> bool:
         a, b = self.pool_a, self.pool_b
         worked_a = a._admit_tick()
         worked_b = b._admit_tick()
@@ -468,14 +498,17 @@ class MultiTenantContinuousEngine:
                              monitor=(self.monitors[t] if self.monitors
                                       else None))
             for t, (m, p) in enumerate(zip(models, params))]
+        self._telemetry = config.telemetry
+        _share_hub(replan, config)
         self._build_lockstep()
         self.decode_steps = 0
 
     def _build_lockstep(self) -> None:
         """(Re)build the N-tenant step from the current models (tenant
         churn changes the list)."""
-        self._step = build_lockstep_step(
-            self.models, collect_stats=self.replan is not None)
+        self._step = wrap_step_callable(build_lockstep_step(
+            self.models, collect_stats=self.replan is not None),
+            "lockstep_decode", self.config)
 
     @property
     def replan_events(self) -> list:
@@ -507,6 +540,8 @@ class MultiTenantContinuousEngine:
                 self.monitors[t].slot_to_expert = new_p
         self.groups = new_groups
         self.plan = plan
+        record_adoption(self._telemetry, "grouping", step=self.decode_steps,
+                        groups=new_groups)
 
     def _maybe_regroup(self) -> None:
         new = self.replan.maybe_regroup(self.decode_steps, self.monitors,
@@ -602,6 +637,14 @@ class MultiTenantContinuousEngine:
     def step(self) -> bool:
         """Admission ticks of every pool, one lockstep decode, the routing
         observations, every pool's bookkeeping, then re-grouping."""
+        tel = self._telemetry
+        if tel is None or not tel.enabled:
+            return self._step_impl()
+        with tel.span("lockstep_step", step=self.decode_steps,
+                      tenants=self.n_tenants):
+            return self._step_impl()
+
+    def _step_impl(self) -> bool:
         worked = [p._admit_tick() for p in self.pools]
         if all(p.num_active == 0 for p in self.pools):
             return any(worked)

@@ -383,7 +383,15 @@ class EngineConfig:
     the colocated and multi-tenant engines give one to each pool.
     ``kernels``: ``False`` (plain dense path), ``True`` (default
     ``KernelConfig``) or a ``KernelConfig``, applied by ``kernelize``.
-    ``event_capacity`` bounds ``shed_events`` (drop-oldest).
+    ``step_wrapper`` wraps every step callable the engine runs (prefill,
+    chunk, decode, pool, lockstep decode); fault injection times and
+    screens steps through it. ``telemetry`` attaches a
+    ``serving.Telemetry`` hub: step callables become spans (outermost,
+    around ``step_wrapper``), shed, re-plan, fault and adoption events
+    publish to its bus and its metrics fill in; None (default) composes no
+    wrapper and does no per-step work. The colocated and multi-tenant
+    pools share the hub. ``event_capacity`` bounds ``shed_events``
+    (drop-oldest).
     """
 
     prefill_len: int | None = None
@@ -394,6 +402,8 @@ class EngineConfig:
     admission: AdmissionPolicy | None = None
     tenants: tuple[TenantSpec, ...] = ()
     kernels: object = False          # bool | KernelConfig
+    step_wrapper: Callable | None = None
+    telemetry: object = None         # Telemetry | None
     event_capacity: int = 4096
 
     def __post_init__(self):

@@ -38,14 +38,22 @@ to the host and folded into the monitor, feeding the re-planner
 (``serving.monitor``). Each copy waits for the call that made the counts.
 Prefill counts drop the left-pad positions.
 
-Placement (``adopt_assignment``, ``adopt``): an expert->device assignment
-is realised by re-seating the expert weights and the router columns in
-place (``colocated.reseat_pairing``), so the function, and every emitted
-token, stays the same.
+Placement (``adopt_assignment``, ``adopt_replication``, ``adopt``): an
+expert->device assignment is realised by re-seating the expert weights and
+the router columns in place (``colocated.reseat_pairing``); a hot-expert
+replication by re-laying the expert leaves out one (layer, weight kind)
+slab at a time into the engine's own per-layer tensors
+(``moe.relayout_moe_params``; the caller's params are never written).
+Either way the function, and every emitted token, stays the same.
+
+Step callables: every model call the scheduler makes (one-shot prefill,
+chunk, decode, pool step) goes through ``EngineConfig.step_wrapper``
+(innermost) and, when a telemetry hub is attached, its span wrapper
+(outermost). Fault tolerance: ``checkpoint`` copies the cache and the token
+buffer (the cache is written in place, so a snapshot must not alias it),
+``restore`` copies them back, ``requeue`` evicts slots fail-stop.
 
 The cache is updated in place (the reference donates it to a jitted step).
-Replication, telemetry and fault tolerance (``checkpoint``/``restore``/
-``requeue``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -53,17 +61,21 @@ from __future__ import annotations
 import collections
 import dataclasses
 import math
+from functools import partial
 from typing import Sequence
 
 import numpy as np
 import torch
 
-from ..core.errors import PlanError
+from ..bridge import map_tree
+from ..core.errors import FaultError, PlanError
 from ..models import Model
 from .config import EngineConfig, RequestSpec, ShedEvent
 from .events import RingBuffer
+from .telemetry import STEP_BOUNDS, record_adoption, tree_leaves
 
-__all__ = ["Request", "poisson_requests", "serve_stream", "ContinuousEngine"]
+__all__ = ["Request", "poisson_requests", "serve_stream", "ContinuousEngine",
+           "wrap_step_callable"]
 
 
 @dataclasses.dataclass
@@ -93,6 +105,18 @@ def poisson_requests(rng, n: int, rate: float, vocab: int, prompt_len: int,
             max_new_tokens=int(rng.integers(max_new_lo, max_new_hi + 1)),
             arrival=t))
     return reqs
+
+
+def wrap_step_callable(fn, name: str, config: EngineConfig,
+                       tenant: str | None = None):
+    """A step callable as every engine runs it: ``config.step_wrapper``
+    innermost and, with a hub, its span wrapper ``name`` outermost, so the
+    span covers the wrapped call."""
+    if config.step_wrapper is not None:
+        fn = config.step_wrapper(fn)
+    if config.telemetry is not None:
+        fn = config.telemetry.wrap_step(fn, name, tenant=tenant)
+    return fn
 
 
 def serve_stream(step_fn, pools) -> None:
@@ -129,6 +153,7 @@ class ContinuousEngine:
     ``monitor``: an optional ``TrafficMonitor`` fed with the routing counts
     of every call. ``assignment``: the expert->device map realised in
     ``params`` (identity until one is adopted; None for a dense model).
+    ``model.replication``: the hot-expert layout realised in ``params``.
     """
 
     def __init__(self, model: Model, params, batch_slots: int,
@@ -163,10 +188,105 @@ class ContinuousEngine:
         # In-flight chunked prefills, in arrival order: [req, slot,
         # padded_toks, done]; ``done`` is the host-side chunk offset.
         self._pending: list[list] = []
+        self._telemetry = config.telemetry
+        self._tenant_label = (self.tenant_spec.name
+                              if self.tenant_spec is not None else "")
+        self._build_steps()
         self.decode_steps = 0
         self.prefills = 0
         # Rejected submits under shed-mode admission, drop-oldest.
         self.shed_events = RingBuffer(config.event_capacity)
+
+    def _build_steps(self) -> None:
+        """(Re)build the step callables from ``self.model``."""
+        model = self.model
+
+        def wrap(fn, name):
+            return wrap_step_callable(fn, name, self.config,
+                                      tenant=self._tenant_label or None)
+        stats = self.monitor is not None
+        self._prefill = wrap(partial(model.prefill_slot, cap=self.cache_cap,
+                                     collect_moe_stats=stats), "prefill")
+        self._chunk_first = wrap(partial(
+            model.prefill_chunk_slot, first=True, cap=self.cache_cap,
+            collect_moe_stats=stats), "prefill_chunk")
+        self._chunk = wrap(partial(
+            model.prefill_chunk_slot, first=False, cap=self.cache_cap,
+            collect_moe_stats=stats), "prefill_chunk")
+        self._decode = wrap(model.decode_step_stats if stats
+                            else model.decode_step, "decode_step")
+        if self._pool_size > 1:
+            self._pool_step = wrap(self._make_pool_fn(stats), "pool_step")
+
+    def _make_pool_fn(self, stats: bool):
+        """One pooled engine step: the picked chunks, each a batch-1
+        ``prefill_chunk_slot`` call (MoE capacity is per token group, so
+        batching them would change the routing), then, when ``decode`` is
+        set, the decode over every slot, all on the shared cache. Returns
+        (per chunk (logits, counts), (logits, counts) of the decode or
+        None, cache); counts are None without a monitor."""
+        model = self.model
+        chunk = partial(model.prefill_chunk_slot, cap=self.cache_cap,
+                        collect_moe_stats=stats)
+        dec = model.decode_step_stats if stats else model.decode_step
+
+        def pool_fn(firsts, decode, params, toks, cache, slots, tokens,
+                    mask):
+            chunk_out = []
+            for inp, slot, first in zip(toks, slots, firsts):
+                out = chunk(params, inp, cache, slot, first=first)
+                chunk_out.append((out[0], out[2] if stats else None))
+            dec_out = None
+            if decode:
+                out = dec(params, tokens, cache, mask)
+                dec_out = (out[0], out[2] if stats else None)
+            return chunk_out, dec_out, cache
+
+        return pool_fn
+
+    def _rebind(self, model: Model) -> None:
+        """Swap the model (a new replication layout) and rebuild the step
+        callables. Serving state (cache, slots, queue, in-flight prefills)
+        is untouched: placement-only as long as the new model computes the
+        same function."""
+        self.model = model
+        self._build_steps()
+
+    def _set_replication(self, spec) -> None:
+        """Install a hot-expert ``ReplicationSpec`` (placement-only): the
+        expert leaves move from the current layout to ``spec``'s, one
+        (layer, weight kind) slab at a time, into the engine's own
+        per-layer tensors (``relayout_moe_params``: the transient is one
+        slab; the caller's leaves are only read). Routing, capacity and
+        drops stay logical, so a mid-stream swap changes no token."""
+        from ..models.moe import relayout_moe_params
+        cur = self.model.replication
+        if spec is not None and spec.is_identity:
+            spec = None
+        if (None if cur is None else cur.counts) == \
+                (None if spec is None else spec.counts):
+            return
+        self.params = relayout_moe_params(self.params, cur, spec,
+                                          self.model.cfg.moe.n_experts)
+        self._rebind(dataclasses.replace(self.model, replication=spec))
+        record_adoption(self._telemetry, "replication",
+                        step=self.decode_steps,
+                        counts=None if spec is None else spec.counts)
+
+    def adopt_replication(self, replication) -> None:
+        """Adopt a planner host map (``Plan.replication``: per-expert host
+        tuples) or a bare per-expert copy-count sequence. ``None`` or the
+        identity map drops back to unreplicated serving. Idempotent: the
+        same counts change nothing."""
+        from ..models.moe import ReplicationSpec
+        if replication is None:
+            spec = None
+        else:
+            counts = tuple(
+                len(h) if hasattr(h, "__len__") else int(h)
+                for h in replication)
+            spec = ReplicationSpec.from_counts(counts)
+        self._set_replication(spec)
 
     def adopt_assignment(self, expert_to_device) -> None:
         """Adopt an exclusive-scenario expert->device assignment (Thm 5.1),
@@ -190,6 +310,11 @@ class ContinuousEngine:
                 "per device")
         if e2d == self.assignment:
             return
+        if self.model.replication is not None:
+            raise PlanError(
+                "cannot re-seat an expert assignment while replicas are "
+                "live — adopt_replication(None) first (the replicated "
+                "leaves are in the widened physical frame)")
         new_pair = inverse_pair(e2d)              # device slot -> expert
         self.params = reseat_pairing(self.params,
                                      inverse_pair(self.assignment), new_pair,
@@ -197,22 +322,22 @@ class ContinuousEngine:
         self.assignment = e2d
         if self.monitor is not None:
             self.monitor.slot_to_expert = new_pair
+        record_adoption(self._telemetry, "assignment",
+                        step=self.decode_steps, expert_to_device=e2d)
 
     def adopt(self, plan) -> None:
         """Adopt a placement mid-stream: an exclusive-scenario ``Plan`` (its
-        ``expert_to_device``), or None (no replicas: nothing to drop).
-        Replicated plans and bare host maps wait for the replication slice
-        of the port and raise."""
-        if plan is None:
+        ``expert_to_device`` assignment and/or its ``replication`` host
+        map), a bare per-expert host-map or copy-count sequence, or None
+        (drop back to unreplicated serving)."""
+        if not hasattr(plan, "schedules"):
+            self.adopt_replication(plan)
             return
-        if not hasattr(plan, "schedules") or plan.replication is not None:
-            raise NotImplementedError(
-                "hot-expert replication is not ported yet: this engine "
-                "adopts expert->device assignments only")
         if (plan.pair is None and plan.groups is None
-                and self.assignment is not None
+                and plan.replication is None and self.assignment is not None
                 and len(plan.expert_to_device) == len(self.assignment)):
             self.adopt_assignment(plan.expert_to_device)
+        self.adopt_replication(plan.replication)
 
     @property
     def num_active(self) -> int:
@@ -254,6 +379,12 @@ class ContinuousEngine:
                 ev = ShedEvent(tenant=req.tenant, arrival=req.arrival,
                                reason=reason, request=req)
                 self.shed_events.append(ev)
+                tel = self._telemetry
+                if tel is not None and tel.enabled:
+                    tel.count("serving_sheds_total",
+                              help="submits rejected by shed-mode admission",
+                              tenant=str(req.tenant), reason=reason)
+                    tel.publish("shed", ev, step=self.decode_steps)
                 return ev
         self.queue.append(req)
         return None
@@ -336,6 +467,15 @@ class ContinuousEngine:
         if len(r.out_tokens) < r.max_new_tokens:
             self.slots[slot] = r
             self.tokens[slot, 0] = tok0
+        tel = self._telemetry
+        if tel is not None and tel.enabled and r.max_new_tokens > 0:
+            tel.count("serving_tokens_total",
+                      help="tokens emitted", tenant=self._tenant_label)
+            tel.observe("serving_ttft_steps",
+                        max(0.0, self.decode_steps - r.arrival),
+                        help="engine steps from arrival to first token "
+                             "(step clock)",
+                        bounds=STEP_BOUNDS, tenant=self._tenant_label)
 
     def _admit(self) -> None:
         """Drain the queue into free slots, one batch-1 prefill each, in the
@@ -344,10 +484,9 @@ class ContinuousEngine:
             slot = self.slots.index(None)
             r = self._pop_queue()
             padded = self._padded(r)
-            out = self.model.prefill_slot(
+            out = self._prefill(
                 self.params, {"tokens": torch.from_numpy(padded).to(
-                    self.device)}, self.cache, slot, cap=self.cache_cap,
-                collect_moe_stats=self.monitor is not None)
+                    self.device)}, self.cache, slot)
             self.prefills += 1
             if self.monitor is not None:
                 self._observe_prefill(out[2],
@@ -378,10 +517,8 @@ class ContinuousEngine:
         None."""
         r, slot, toks, done = p
         chunk = torch.from_numpy(toks[:, done:done + c]).to(self.device)
-        out = self.model.prefill_chunk_slot(
-            self.params, {"tokens": chunk}, self.cache, slot,
-            first=done == 0, cap=self.cache_cap,
-            collect_moe_stats=self.monitor is not None)
+        fn = self._chunk_first if done == 0 else self._chunk
+        out = fn(self.params, {"tokens": chunk}, self.cache, slot)
         self.prefills += 1
         p[3] = done + c
         # The chunk covers padded positions [done, done + c); the left pad
@@ -415,9 +552,10 @@ class ContinuousEngine:
 
     def _pool_tick(self, fuse_decode: bool) -> bool:
         """Pooled chunked admission (``prefill_pool=K``): top the pool up in
-        the policy's queue order, run every picked chunk in the policy's run
-        order and, when ``fuse_decode`` is set and slots are occupied, the
-        decode over every slot (pending ones masked).
+        the policy's queue order, then run every picked chunk in the
+        policy's run order and, when ``fuse_decode`` is set and slots are
+        occupied, the decode over every slot (pending ones masked), as one
+        pool step (``_make_pool_fn``).
 
         Order matters: ``_postdecode`` replaces ``self.tokens`` wholesale
         with this step's argmax, so it runs before ``_finish_admission``
@@ -437,20 +575,34 @@ class ContinuousEngine:
         decode = fuse_decode and self.num_active > 0
         if not picked and not decode:
             return False
-        finished, routings = [], []
-        for i in picked:
-            p = self._pending[i]
-            logits, routing = self._run_chunk(p, chunks[i])
-            routings.append(routing)
-            if p[3] >= p[2].shape[1]:
-                finished.append((p, logits))
+        sel = [self._pending[i] for i in picked]
+        sel_chunks = [chunks[i] for i in picked]
+        toks = tuple({"tokens": torch.from_numpy(
+            p[2][:, p[3]:p[3] + c]).to(self.device)}
+            for p, c in zip(sel, sel_chunks))
+        mask = np.array([r is not None for r in self.slots], bool)
+        chunk_out, dec_out, self.cache = self._pool_step(
+            tuple(p[3] == 0 for p in sel), decode, self.params, toks,
+            self.cache, tuple(p[1] for p in sel), self.tokens,
+            torch.from_numpy(mask).to(self.device))
+        self.prefills += len(sel)
         if decode:
-            logits = self._decode_all()
+            logits, stats = dec_out
+            if self.monitor is not None:
+                self._load_gauges(self._observe_decode_routing(stats, mask),
+                                  mask)
             self.decode_steps += 1
             self._postdecode(logits)
-        for routing in routings:
-            if routing is not None:
-                self._observe_prefill(*routing)
+        finished = []
+        for p, c, (logits, stats) in zip(sel, sel_chunks, chunk_out):
+            r, slot, tk, done = p
+            if self.monitor is not None:
+                # The chunk covers padded positions [done, done + c).
+                self._observe_prefill(stats,
+                                      pad=tk.shape[1] - len(r.prompt) - done)
+            p[3] = done + c
+            if p[3] >= tk.shape[1]:
+                finished.append((p, logits))
         for p, logits in finished:
             self._pending.remove(p)
             self._finish_admission(p[0], p[1], logits)
@@ -464,18 +616,51 @@ class ContinuousEngine:
         mask = np.array([r is not None for r in self.slots], bool)
         row_mask = torch.from_numpy(mask).to(self.device)
         if self.monitor is None:
-            logits, self.cache = self.model.decode_step(
+            logits, self.cache = self._decode(
                 self.params, self.tokens, self.cache, row_mask)
             return logits
-        logits, self.cache, stats = self.model.decode_step_stats(
+        logits, self.cache, stats = self._decode(
             self.params, self.tokens, self.cache, row_mask)
-        self._observe_decode_routing(stats, mask)
+        self._load_gauges(self._observe_decode_routing(stats, mask), mask)
         return logits
 
-    def _observe_decode_routing(self, stats, mask) -> None:
+    def _observe_decode_routing(self, stats, mask):
         """Fold one decode step's (L, B, E) routing counts into the monitor
-        (host copy; ``mask`` (B,) bool marks the occupied rows)."""
-        self.monitor.observe(stats.cpu().numpy(), mask)
+        (host copy; ``mask`` (B,) bool marks the occupied rows). Returns
+        the host counts."""
+        arr = stats.cpu().numpy()
+        self.monitor.observe(arr, mask)
+        return arr
+
+    def _load_gauges(self, arr, mask) -> None:
+        """With a telemetry hub, the per-layer expert-load gauges of one
+        decode step's host counts (the single-model engine's; the lockstep
+        engines, whose tenants would share the gauges, set none, as in the
+        reference)."""
+        tel = self._telemetry
+        if tel is None or not tel.enabled:
+            return
+        arr = np.asarray(arr, np.float64)            # (L, B, E)
+        if mask is not None:
+            arr = arr * np.asarray(mask, np.float64)[None, :, None]
+        totals = arr.sum(axis=1)                     # (L, E)
+        moe = self.model.cfg.moe
+        cf = moe.capacity_factor if moe is not None else None
+        for layer, row in enumerate(totals):
+            tot = float(row.sum())
+            if tot <= 0:
+                continue
+            tel.gauge("moe_expert_load_imbalance",
+                      float(row.max()) * row.size / tot,
+                      help="max/mean expert load this decode step "
+                           "(1.0 = perfectly balanced)", layer=layer)
+            if cf:
+                cap = cf * tot / row.size
+                tel.gauge("moe_expert_drop_rate",
+                          float(np.maximum(row - cap, 0.0).sum()) / tot,
+                          help="estimated fraction of routed tokens over "
+                               "per-expert capacity (capacity_factor rule "
+                               "applied to this step's counts)", layer=layer)
 
     def _observe_prefill(self, stats, pad: int) -> None:
         """Fold prefill routing counts (L, 1, S, E) into the monitor,
@@ -490,19 +675,32 @@ class ContinuousEngine:
         nxt = torch.argmax(logits[:, :, : self.model.cfg.vocab], dim=-1)
         self.tokens = nxt
         host = nxt.cpu().numpy()
+        emitted = 0
         for i, r in enumerate(self.slots):
             if r is None:
                 continue
             r.out_tokens.append(int(host[i, 0]))
+            emitted += 1
             if len(r.out_tokens) >= r.max_new_tokens:
                 self.slots[i] = None
+        tel = self._telemetry
+        if tel is not None and tel.enabled and emitted:
+            tel.count("serving_tokens_total", emitted,
+                      help="tokens emitted", tenant=self._tenant_label)
 
     def step(self) -> bool:
         """Admit (whole prefills, or policy-admitted chunks), then decode
-        all slots once. Returns False when idle. (The reference wraps
-        ``_step_impl`` in telemetry spans here; the port has no telemetry
-        yet.)"""
-        return self._step_impl()
+        all slots once. Returns False when idle. With a telemetry hub the
+        step is an ``engine_step`` span and sets the queue-depth gauge."""
+        tel = self._telemetry
+        if tel is None or not tel.enabled:
+            return self._step_impl()
+        with tel.span("engine_step", step=self.decode_steps,
+                      tenant=self._tenant_label or None):
+            tel.gauge("serving_queue_depth", len(self.queue),
+                      help="requests waiting for admission",
+                      tenant=self._tenant_label)
+            return self._step_impl()
 
     def _step_impl(self) -> bool:
         if self._pool_size > 1:
@@ -515,8 +713,81 @@ class ContinuousEngine:
         self._postdecode(logits)
         return True
 
+    # -- fault tolerance ---------------------------------------------------
+    def checkpoint(self) -> dict:
+        """Snapshot of the serving state for step-level rollback after a
+        corrupt step: a COPY of the cache and of the token buffer (both are
+        written in place, so references would restore the mutated state;
+        the copies stay on the cache's device), the slot map, the queue,
+        the in-flight prefills and the emitted-token lengths. Request
+        objects are shared with the live engine; ``restore`` rewinds their
+        ``out_tokens``."""
+        reqs = {id(r): r for r in self.slots if r is not None}
+        for r in self.queue:
+            reqs[id(r)] = r
+        for p in self._pending:
+            reqs[id(p[0])] = p[0]
+        return {
+            "cache": map_tree(torch.clone, self.cache),
+            "tokens": self.tokens.clone(),
+            "slots": list(self.slots),
+            "queue": list(self.queue),
+            "pending": [[p[0], p[1], p[2].copy(), p[3]]
+                        for p in self._pending],
+            "out_lens": [(r, len(r.out_tokens)) for r in reqs.values()],
+            "decode_steps": self.decode_steps,
+        }
+
+    def restore(self, snap: dict) -> None:
+        """Roll the engine back to a ``checkpoint`` snapshot: the cache is
+        copied back into the live tensors (the snapshot stays usable);
+        greedy decoding makes a re-run byte-identical."""
+        with torch.no_grad():
+            for live, saved in zip(tree_leaves(self.cache),
+                                   tree_leaves(snap["cache"])):
+                live.copy_(saved)
+        self.tokens = snap["tokens"].clone()
+        self.slots = list(snap["slots"])
+        self.queue = collections.deque(snap["queue"])
+        self._pending = [[p[0], p[1], p[2].copy(), p[3]]
+                         for p in snap["pending"]]
+        for r, ln in snap["out_lens"]:
+            del r.out_tokens[ln:]
+        self.decode_steps = snap["decode_steps"]
+
+    def requeue(self, slots) -> list[Request]:
+        """Fail-stop eviction: push the requests occupying ``slots`` (and
+        any in-flight prefill reserving them) back onto the FRONT of the
+        queue with their generation reset. Their cache rows count as lost:
+        re-admission re-prefills from the prompt, and greedy decoding
+        re-emits the same stream. Returns the evicted requests, in re-queue
+        order."""
+        lost = sorted({int(s) for s in slots})
+        for s in lost:
+            if not 0 <= s < self.batch_slots:
+                raise FaultError(
+                    f"cannot requeue slot {s}: out of "
+                    f"range({self.batch_slots})")
+        lost_set = set(lost)
+        victims: list[Request] = []
+        for p in list(self._pending):
+            if p[1] in lost_set:
+                self._pending.remove(p)
+                victims.append(p[0])
+        for s in lost:
+            r = self.slots[s]
+            if r is not None:
+                self.slots[s] = None
+                victims.append(r)
+        for r in victims:
+            r.out_tokens.clear()
+        for r in reversed(victims):
+            self.queue.appendleft(r)
+        return victims
+
     def serve(self, reqs: list[Request]) -> list[Request]:
         """Run a request stream to completion, honoring ``arrival`` times
         (in engine steps; same-step arrivals are admitted in list order)."""
         serve_stream(self.step, [(self, reqs)])
         return reqs
+

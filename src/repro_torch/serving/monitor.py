@@ -16,9 +16,12 @@ weights and router columns together (``colocated.reseat_pairing``), never
 the function it computes, so a mid-stream re-plan cannot change emitted
 tokens.
 
+``OnlineReplanner.maybe_replicate`` picks a hot-expert replication from the
+live (or, with ``predictive=True``, the forecast) trace; an engine adopts
+it with ``adopt``, placement-only as well. With a telemetry hub attached,
+every decision point is counted and published on its bus.
+
 Pure numpy: the engines copy the counts to the host before ``observe``.
-Not ported yet: ``OnlineReplanner.maybe_replicate`` (it waits for hot-expert
-replication) and the telemetry hooks.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ import dataclasses
 import numpy as np
 
 from ..core.planner import AuroraPlanner, Plan, PlanDiff
-from ..core.traffic import MoETrace, trace_from_counts
+from ..core.traffic import (MoETrace, identity_replication,
+                            trace_from_counts)
 from .events import RingBuffer
 
 
@@ -173,6 +177,9 @@ class ReplanEvent:
     # Re-grouping events carry the candidate grouping (groups[g][t] =
     # tenant-t expert on slot g); None for pair events.
     groups: list[tuple[int, ...]] | None = None
+    # Replication events carry the candidate host map (replication[e] =
+    # devices hosting expert e, home first).
+    replication: tuple[tuple[int, ...], ...] | None = None
     # Re-assignment events carry the candidate expert->device map.
     assignment: tuple[int, ...] | None = None
 
@@ -186,9 +193,13 @@ class OnlineReplanner:
     the switch only when the placement changes and the predicted inference
     time improves by more than ``threshold`` (relative): hysteresis against
     churn on noisy traffic. ``baseline_pair``/``baseline_groups``/
-    ``baseline_assignment`` are frozen reference placements scored on the
-    live trace at every checkpoint. ``events`` keeps the newest
-    ``event_capacity`` decision points (drop-oldest).
+    ``baseline_assignment``/``baseline_replication`` are frozen reference
+    placements scored on the live trace at every checkpoint.
+    ``predictive=True`` makes ``maybe_replicate`` plan on the monitor's
+    forecast (``TrafficMonitor.predicted_trace``) instead of the slow EWMA.
+    ``events`` keeps the newest ``event_capacity`` decision points
+    (drop-oldest); ``telemetry`` (a ``serving.Telemetry``, wired by the
+    engines from their config) also counts and publishes each one.
     """
 
     def __init__(self, planner: AuroraPlanner, interval: int = 64,
@@ -196,7 +207,10 @@ class OnlineReplanner:
                  tokens_per_device: float = 1024.0,
                  baseline_pair: list[int] | None = None,
                  baseline_groups: list[tuple[int, ...]] | None = None,
+                 predictive: bool = False,
+                 baseline_replication=None,
                  baseline_assignment=None,
+                 telemetry=None,
                  event_capacity: int = 4096):
         if interval <= 0:
             raise ValueError("interval must be positive")
@@ -209,10 +223,24 @@ class OnlineReplanner:
                               else list(baseline_pair))
         self.baseline_groups = (None if baseline_groups is None
                                 else [tuple(g) for g in baseline_groups])
+        self.predictive = predictive
+        self.baseline_replication = (
+            None if baseline_replication is None
+            else tuple(tuple(h) for h in baseline_replication))
         self.baseline_assignment = (
             None if baseline_assignment is None
             else [int(d) for d in baseline_assignment])
         self.events: RingBuffer = RingBuffer(event_capacity)
+        self.telemetry = telemetry
+
+    def _record(self, ev: ReplanEvent) -> None:
+        self.events.append(ev)
+        tel = self.telemetry
+        if tel is not None and tel.enabled:
+            tel.count("serving_replans_total",
+                      help="re-plan checkpoints by outcome",
+                      applied=ev.applied)
+            tel.publish("replan", ev, step=ev.step)
 
     def _due(self, step: int, monitors) -> bool:
         return (step != 0 and step % self.interval == 0
@@ -242,7 +270,7 @@ class OnlineReplanner:
         if self.baseline_pair is not None:
             base_t = self.planner.evaluate_colocated(
                 tr_a, tr_b, self.baseline_pair).inference_time
-        self.events.append(ReplanEvent(
+        self._record(ReplanEvent(
             step=step, stale_time=stale.inference_time,
             candidate_time=cand.predicted.inference_time,
             pair=list(cand.pair), applied=apply, baseline_time=base_t))
@@ -272,7 +300,7 @@ class OnlineReplanner:
         if self.baseline_assignment is not None:
             base_t = self.planner.evaluate_exclusive(
                 tr, self.baseline_assignment).inference_time
-        self.events.append(ReplanEvent(
+        self._record(ReplanEvent(
             step=step, stale_time=stale.inference_time,
             candidate_time=cand.predicted.inference_time,
             pair=[], applied=apply, baseline_time=base_t,
@@ -320,9 +348,50 @@ class OnlineReplanner:
         if self.baseline_groups is not None:
             base_t = self.planner.evaluate_multi(
                 traces, self.baseline_groups).inference_time
-        self.events.append(ReplanEvent(
+        self._record(ReplanEvent(
             step=step, stale_time=stale.inference_time,
             candidate_time=cand_time,
             pair=list(cand.pair) if cand.pair is not None else [],
             applied=apply, baseline_time=base_t, groups=cand_groups))
+        return cand if apply else None
+
+    def maybe_replicate(self, step: int, monitor: TrafficMonitor,
+                        current_replication=None, *,
+                        tolerance: float = 0.1,
+                        max_total_replicas: int | None = None,
+                        total_multiple: int | None = None) -> Plan | None:
+        """Exclusive-deployment re-replication: a fresh hot-expert
+        replication from the live (or, if ``self.predictive``, forecast)
+        trace against the CURRENT host map (``Plan.replication`` tuples;
+        None = no replicas) scored on the same trace. The plan to adopt, or
+        None to keep. ``total_multiple`` forwards to the planner (a
+        physical expert count divisible by an EP device count)."""
+        if not self._due(step, (monitor,)):
+            return None
+        kw = dict(tokens_per_device=self.tokens_per_device)
+        tr = (monitor.predicted_trace(**kw) if self.predictive
+              else monitor.trace(**kw))
+        cur = (identity_replication(monitor.n_experts)
+               if current_replication is None
+               else tuple(tuple(h) for h in current_replication))
+        stale = self.planner.evaluate_replicated(tr, cur)
+        cand = self.planner.plan_replicated(
+            tr, tolerance=tolerance, max_total_replicas=max_total_replicas,
+            total_multiple=total_multiple)
+        changed = cand.replication != cur
+        diff = PlanDiff(
+            pair_changed=changed,
+            assignment_changed=False,     # placement-only replication
+            old_time=stale.inference_time,
+            new_time=cand.predicted.inference_time)
+        apply = changed and diff.rel_improvement > self.threshold
+        base_t = None
+        if self.baseline_replication is not None:
+            base_t = self.planner.evaluate_replicated(
+                tr, self.baseline_replication).inference_time
+        self._record(ReplanEvent(
+            step=step, stale_time=stale.inference_time,
+            candidate_time=cand.predicted.inference_time,
+            pair=[], applied=apply, baseline_time=base_t,
+            replication=cand.replication))
         return cand if apply else None

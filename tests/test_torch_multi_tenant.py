@@ -168,7 +168,10 @@ def test_adopt_assignment_equals_jax(weights):
     leaves_equal(eng_t.params, eng_j.params)
     plan = tcore.AuroraPlanner(tcore.homogeneous_cluster(N_E)).plan_replicated(
         tcore.synthetic_trace("t", n_experts=N_E, n_layers=2), tolerance=0.0)
-    with pytest.raises(NotImplementedError, match="replication"):
-        eng_t.adopt(plan)
+    eng_t.adopt(plan)                         # replicas on top of the seats
+    assert eng_t.model.replication.counts == tuple(
+        len(h) for h in plan.replication)
+    with pytest.raises(tserving.PlanError, match="replicas are live"):
+        eng_t.adopt_assignment(list(range(N_E)))
     with pytest.raises(tserving.PlanError, match="permutation"):
         eng_t.adopt_assignment([0, 0, 1, 2])
