@@ -51,7 +51,8 @@ non-zero:
    three tenants with chunks of 64, without and with a forced re-group.
    Gates: re-planned and re-grouped streams equal the static runs', at
    least one adoption each, exact launch counts, each adoption's
-   transient memory within one (16, 4096, 6400) expert slab. Lockstep
+   transient memory (its peak beyond the memory before it) within one
+   (16, 4096, 6400) expert slab. Lockstep
    step ms, tok/s per tenant, re-plan step ms, the host ms of planning and
    of observing the counts, and each adoption's ms and memory are printed.
    Then the profile of a 2-tenant lockstep decode step, with and without
@@ -71,8 +72,10 @@ non-zero:
    devices, slot % 4): a corruption of a routed replicated hot expert
    (repaired from a replica), of a routed unreplicated one (restored from
    the pristine host copy), a straggler, and the loss of one device
-   (requeue, degraded re-plan adopted). Gates: streams equal the serve
-   phase's, every action seen, exact launch counts (from the hub's spans).
+   (requeue, degraded re-plan adopted; the lost device stands for the 4
+   of the planner's 16 whose index % 4 is its own). Gates: streams equal
+   the serve phase's, every action seen, the degraded plan's survivors
+   the other 12, exact launch counts (from the hub's spans).
    Printed: per-step checkpoint ms, restore + repair + re-run ms, the
    pristine copy's bytes and seconds.
 12. telemetry: the serve stream without and with a ``Telemetry`` hub
@@ -1082,11 +1085,15 @@ def _nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in _leaves(tree))
 
 
-def _timed_adoption(rec, fn, *args):
+def _timed_adoption(rec, fn, *args, widens: bool = False):
     """``fn(*args)`` synchronised: its ms, the memory allocated before and
-    after it, and its transient, the peak beyond the larger of the two.
-    The peak counter is reset for it, so the peak before it is kept in
-    ``rec["peaks"]``."""
+    after it, and its transient. An in-place re-seat (the default) must
+    end where it began, so its transient is the peak beyond the memory
+    before it: a second copy of the weights, whether freed or kept, shows
+    in full. An adoption that ``widens`` the weights (a replication) may
+    end larger, so its transient is the peak beyond the larger of the
+    two layouts. The peak counter is reset for it, so the peak before it
+    is kept in ``rec["peaks"]``."""
     import torch
     torch.cuda.synchronize()
     rec["peaks"].append(torch.cuda.max_memory_allocated())
@@ -1100,7 +1107,8 @@ def _timed_adoption(rec, fn, *args):
     rec["adopt"].append({
         "ms": (time.perf_counter() - t) * 1e3, "before_GB": before / 1e9,
         "after_GB": after / 1e9, "peak_GB": peak / 1e9,
-        "transient_bytes": peak - max(before, after)})
+        "transient_bytes": peak - (max(before, after) if widens
+                                   else before)})
     return out
 
 
@@ -1133,11 +1141,11 @@ def _replicating_step(eng, replan, rec, drop_after: int, **plan_kw):
         if state["adopted_at"] is None:
             plan = replan.maybe_replicate(now, eng.monitor, None, **plan_kw)
             if plan is not None:
-                _timed_adoption(rec, eng.adopt, plan)
+                _timed_adoption(rec, eng.adopt, plan, widens=True)
                 state["adopted_at"], state["spec"] = now, eng.model.replication
         elif state["dropped_at"] is None and \
                 now >= state["adopted_at"] + drop_after:
-            _timed_adoption(rec, eng.adopt_replication, None)
+            _timed_adoption(rec, eng.adopt_replication, None, widens=True)
             state["dropped_at"] = now
         return worked
     return step, state
@@ -1250,7 +1258,7 @@ def phase_serve_replicated(model, params, want, solo):
     eng = engine()
     rec = {"adopt": [], "peaks": []}
     weights_before = _nbytes(eng.params)
-    _timed_adoption(rec, eng.adopt, plan)
+    _timed_adoption(rec, eng.adopt, plan, widens=True)
     weights_after = _nbytes(eng.params)
     require(eng.model.replication == spec, "serve_replicated[a]",
             f"adopted {eng.model.replication}, planned {spec}")
@@ -1304,8 +1312,11 @@ def phase_chaos(model, params, want, spec, monitor):
     (repaired from its replica), the most routed single-copy expert at step
     30 (restored from the pristine host copy), device 3 lost at step 50
     (requeue, then ``plan_degraded`` on the unreplicated run's trace
-    adopted). Gates: streams equal the serve phase's, every action seen,
-    exact launch counts."""
+    adopted). The planner sees the card's 16 expert slots as 16 devices;
+    virtual device d stands for those of slot % 4 == d, so the loss of
+    device 3 fails 4 of them. Gates: streams equal the serve phase's,
+    every action seen, the degraded plan's survivors exactly the other
+    12, exact launch counts."""
     import collections
     import torch
     from repro_torch.core import AuroraPlanner, homogeneous_cluster
@@ -1335,8 +1346,10 @@ def phase_chaos(model, params, want, spec, monitor):
     eng.adopt_replication(spec.counts)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    harness = ChaosHarness(eng, inj, planner=AuroraPlanner(
-        homogeneous_cluster(n)), trace=monitor.trace())
+    harness = ChaosHarness(
+        eng, inj, planner=AuroraPlanner(homogeneous_cluster(n)),
+        trace=monitor.trace(),
+        hosts_of_device=lambda d: [e for e in range(n) if e % 4 == d])
     pristine_s = time.perf_counter() - t
     rec = {"checkpoint_ms": [], "recover_nan_ms": [], "adopt": [],
            "peaks": []}
@@ -1353,7 +1366,7 @@ def phase_chaos(model, params, want, spec, monitor):
     eng.checkpoint = timed(eng.checkpoint, "checkpoint_ms")
     harness._recover_nan = timed(harness._recover_nan, "recover_nan_ms")
     adopt = eng.adopt
-    eng.adopt = lambda plan_: _timed_adoption(rec, adopt, plan_)
+    eng.adopt = lambda plan_: _timed_adoption(rec, adopt, plan_, widens=True)
     reqs = _stream(cfg, 10, 64, 200, 16, 64, seed=0)
     launches, calls, numbers = _serve_run(_Stepper(eng, harness.step),
                                           [(eng, reqs)])
@@ -1367,6 +1380,11 @@ def phase_chaos(model, params, want, spec, monitor):
                 "requeued+replanned", "observed"}
     require(expected <= set(actions), phase,
             f"recovery actions {dict(actions)}, expected {sorted(expected)}")
+    lost = {e for e in range(n) if e % 4 == 3}
+    survivors = [list(r["survivors"]) for r in harness.recoveries
+                 if r["action"] == "requeued+replanned"]
+    require(survivors == [sorted(set(range(n)) - lost)], phase,
+            f"degraded plans' survivors {survivors}, device 3 held {lost}")
     spans = collections.Counter(s.name for s in hub.spans)
     want_l = {"decode_attn": spans["decode_step"] * N_LAYERS,
               "moe_gmm": (spans["decode_step"] + spans["prefill"])

@@ -36,6 +36,7 @@ import torch
 
 from ..core.errors import PlanError
 from ..models import Model
+from ..models.moe import expert_leaves, expert_slabs
 from .config import EngineConfig, TenantSpec, scale_admission
 from .engine import wrap_step_callable
 from .telemetry import record_adoption
@@ -66,13 +67,9 @@ def _map_leaves(fn, tree, names=()):
     """``fn(leaf, axis)`` over every leaf, rebuilt into a tree of the same
     structure. ``axis`` is the expert axis of the leaves that carry one
     (stacked expert weights (count, E, ...): 1; a router (count, d, E): its
-    last), else None. An expert leaf that an engine re-laid out as a list
-    of per-layer tensors (``moe.relayout_moe_params``) is one leaf, of
-    axis 1."""
+    last), else None."""
     if isinstance(tree, dict):
         return {k: _map_leaves(fn, v, names + (k,)) for k, v in tree.items()}
-    if isinstance(tree, list) and "experts" in names:
-        return fn(tree, 1)
     if isinstance(tree, (tuple, list)):
         return type(tree)(_map_leaves(fn, v, names) for v in tree)
     if "experts" in names:
@@ -80,6 +77,15 @@ def _map_leaves(fn, tree, names=()):
     if names and names[-1] == "router":
         return fn(tree, tree.ndim - 1)
     return fn(tree, None)
+
+
+def _routers(tree, key=None) -> list:
+    """Every router leaf of ``tree``, (count, d, E) each."""
+    if isinstance(tree, dict):
+        return [r for k, v in tree.items() for r in _routers(v, k)]
+    if isinstance(tree, (tuple, list)):
+        return [r for v in tree for r in _routers(v, key)]
+    return [tree] if key == "router" else []
 
 
 def _index(perm, leaf):
@@ -135,15 +141,13 @@ def reseat_pairing(params, old_pair, new_pair, cfg):
     inv_old = inverse_pair(old_pair)
     composed = [inv_old[e] for e in new_pair]
 
-    def permute(leaf, axis):
-        if axis is not None:
-            for layer in leaf:                   # (E, ...) or (d, E) slabs
-                layer.copy_(layer.index_select(axis - 1,
-                                               _index(composed, layer)))
-        return leaf
-
     with torch.no_grad():
-        _map_leaves(permute, params)
+        for leaf in expert_leaves(params):
+            for slab in expert_slabs(leaf):      # (E, ...) per layer
+                slab.copy_(slab.index_select(0, _index(composed, slab)))
+        for router in _routers(params):
+            for layer in router:                 # (d, E) per layer
+                layer.copy_(layer.index_select(1, _index(composed, layer)))
     return params
 
 

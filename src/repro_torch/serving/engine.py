@@ -509,23 +509,35 @@ class ContinuousEngine:
         r = self._pop_queue()
         self._pending.append([r, slot, self._padded(r), 0])
 
+    def _chunk_input(self, p: list, c: int) -> dict:
+        """The next ``c`` padded prompt tokens of pending prefill ``p``, on
+        the device."""
+        toks, done = p[2], p[3]
+        return {"tokens": torch.from_numpy(
+            toks[:, done:done + c]).to(self.device)}
+
+    def _advance_chunk(self, p: list, c: int, stats) -> None:
+        """Book a chunk of ``c`` tokens that ran for pending prefill ``p``:
+        under a monitor observe its routing counts ``stats``, then advance
+        the prefill's offset."""
+        r, _, toks, done = p
+        if self.monitor is not None:
+            # The chunk covers padded positions [done, done + c); the left
+            # pad spans [0, total - len(prompt)) of the padded prompt.
+            self._observe_prefill(stats,
+                                  pad=toks.shape[1] - len(r.prompt) - done)
+        p[3] = done + c
+        self.prefills += 1
+
     def _run_chunk(self, p: list, c: int):
         """Run the next ``c`` tokens of pending prefill ``p`` into its slot
-        row. The first chunk starts the row from zero; later ones resume at
-        its fill level. Returns (logits, routing): ``routing`` is the
-        chunk's (stats, pad) for ``_observe_prefill`` under a monitor, else
-        None."""
-        r, slot, toks, done = p
-        chunk = torch.from_numpy(toks[:, done:done + c]).to(self.device)
-        fn = self._chunk_first if done == 0 else self._chunk
-        out = fn(self.params, {"tokens": chunk}, self.cache, slot)
-        self.prefills += 1
-        p[3] = done + c
-        # The chunk covers padded positions [done, done + c); the left pad
-        # spans [0, total - len(prompt)) of the padded prompt.
-        routing = (None if self.monitor is None
-                   else (out[2], toks.shape[1] - len(r.prompt) - done))
-        return out[0], routing
+        row and book them. The first chunk starts the row from zero; later
+        ones resume at its fill level. Returns the chunk's logits."""
+        fn = self._chunk_first if p[3] == 0 else self._chunk
+        out = fn(self.params, self._chunk_input(p, c), self.cache, p[1])
+        self._advance_chunk(p, c, out[2] if self.monitor is not None
+                            else None)
+        return out[0]
 
     def _prefill_tick(self) -> bool:
         """Serialised chunked admission (``prefill_pool=1``): start or
@@ -542,9 +554,7 @@ class ContinuousEngine:
         # chunk runs only when the policy admits it.
         if not self.admission.select(self.num_active, [self._spec(p[0], c)]):
             return False
-        logits, routing = self._run_chunk(p, c)
-        if routing is not None:
-            self._observe_prefill(*routing)
+        logits = self._run_chunk(p, c)
         if p[3] >= p[2].shape[1]:
             self._pending.pop(0)
             self._finish_admission(p[0], p[1], logits)
@@ -577,15 +587,12 @@ class ContinuousEngine:
             return False
         sel = [self._pending[i] for i in picked]
         sel_chunks = [chunks[i] for i in picked]
-        toks = tuple({"tokens": torch.from_numpy(
-            p[2][:, p[3]:p[3] + c]).to(self.device)}
-            for p, c in zip(sel, sel_chunks))
+        toks = tuple(self._chunk_input(p, c) for p, c in zip(sel, sel_chunks))
         mask = np.array([r is not None for r in self.slots], bool)
         chunk_out, dec_out, self.cache = self._pool_step(
             tuple(p[3] == 0 for p in sel), decode, self.params, toks,
             self.cache, tuple(p[1] for p in sel), self.tokens,
             torch.from_numpy(mask).to(self.device))
-        self.prefills += len(sel)
         if decode:
             logits, stats = dec_out
             if self.monitor is not None:
@@ -595,13 +602,8 @@ class ContinuousEngine:
             self._postdecode(logits)
         finished = []
         for p, c, (logits, stats) in zip(sel, sel_chunks, chunk_out):
-            r, slot, tk, done = p
-            if self.monitor is not None:
-                # The chunk covers padded positions [done, done + c).
-                self._observe_prefill(stats,
-                                      pad=tk.shape[1] - len(r.prompt) - done)
-            p[3] = done + c
-            if p[3] >= tk.shape[1]:
+            self._advance_chunk(p, c, stats)
+            if p[3] >= p[2].shape[1]:
                 finished.append((p, logits))
         for p, logits in finished:
             self._pending.remove(p)

@@ -260,7 +260,10 @@ class ChaosHarness:
       given a planner and a trace, adopt
       ``plan_degraded(failed_devices=..., ep_compatible=False)``'s
       replication (one card: a device is a group of slots, the experts
-      stay on the card).
+      stay on the card). The planner's devices that a lost device stood
+      for are ``hosts_of_device(d)`` (default ``[d]``, the reference's
+      one-to-one frame); give it when the injector's devices are fewer
+      than the planner's.
     * ``straggler``: recorded in ``recoveries`` (re-planning around slow
       devices is the traffic monitor's drift loop, not a failover).
 
@@ -270,7 +273,7 @@ class ChaosHarness:
     """
 
     def __init__(self, engine, injector: FaultInjector, planner=None,
-                 trace=None, slots_of_device=None):
+                 trace=None, slots_of_device=None, hosts_of_device=None):
         injector.attach(engine)
         self.engine = engine
         self.injector = injector
@@ -280,6 +283,7 @@ class ChaosHarness:
         self._slots_of_device = slots_of_device or (
             lambda d: [s for s in range(engine.batch_slots)
                        if s % injector.n_devices == d])
+        self._hosts_of_device = hosts_of_device or (lambda d: [d])
         self.recoveries: list[dict] = []
         self._handled_loss: set[int] = set()
         spec = engine.model.replication
@@ -369,9 +373,10 @@ class ChaosHarness:
         entry = {"event": ev, "action": "requeued",
                  "requeued": len(victims)}
         if self.planner is not None and self.trace is not None:
+            failed = sorted({h for lost in self._handled_loss
+                             for h in self._hosts_of_device(lost)})
             plan = self.planner.plan_degraded(
-                self.trace, failed_devices=sorted(self._handled_loss),
-                ep_compatible=False)
+                self.trace, failed_devices=failed, ep_compatible=False)
             eng.adopt(plan.replication)
             entry["action"] = "requeued+replanned"
             entry["survivors"] = plan.survivors

@@ -374,6 +374,37 @@ def test_chaos_recovery_matches_jax(setup, case):
             (hj.engine.model.pc.moe_replication is None)
 
 
+def test_device_loss_drops_every_host_of_the_device(setup):
+    """With fewer injector devices than planner devices, a lost device
+    takes all the planner devices it stood for (``hosts_of_device``): the
+    degraded plan is the JAX planner's for that whole set, its survivors
+    exclude them, and the streams stay the never-faulted run's."""
+    cfg_j, params_j, params_np, model = setup
+    n = cfg_j.moe.n_experts
+    trace_kw = dict(n_experts=n, n_layers=2, seed=0)
+    inj = tserving.FaultInjector(
+        tserving.FaultPlan((tserving.DeviceLoss(step=1, device=1),)),
+        n_devices=2, health=tserving.HealthMonitor(n_devices=2,
+                                                   heartbeat_timeout=2))
+    eng = _engine(setup, step_wrapper=inj.wrap)
+    eng.adopt_replication((1, 2, 1, 1))
+    h = tserving.ChaosHarness(
+        eng, inj, planner=tcore.AuroraPlanner(tcore.homogeneous_cluster(n)),
+        trace=tcore.synthetic_trace("chaos", **trace_kw),
+        hosts_of_device=lambda d: [e for e in range(n) if e % 2 == d])
+    got = [list(r.out_tokens) for r in h.serve(_stream(tserving,
+                                                       cfg_j.vocab))]
+    lost = [e for e in range(n) if e % 2 == 1]
+    want = jcore.AuroraPlanner(jcore.homogeneous_cluster(n)).plan_degraded(
+        jcore.synthetic_trace("chaos", **trace_kw), failed_devices=lost)
+    entry, = [r for r in h.recoveries if r["event"].kind == "device_loss"]
+    assert entry["action"] == "requeued+replanned"
+    assert list(entry["survivors"]) == list(want.survivors) == [0, 2]
+    spec = tm.ReplicationSpec.from_counts([len(x) for x in want.replication])
+    assert eng.model.replication == spec
+    assert got == _clean(setup)
+
+
 @pytest.mark.parametrize("seed", [3, 11, 25])
 def test_random_chaos_plans_match_jax(setup, seed):
     """Random plans (corruption, loss, stragglers) recover to the exact
