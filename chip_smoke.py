@@ -81,6 +81,28 @@ non-zero:
 12. telemetry: the serve stream without and with a ``Telemetry`` hub
    (``block_steps=True``): streams equal, one span per step callable run,
    JSONL and Chrome trace written under ``chiprun_out/``; step ms of both.
+13. serve_ep: the serve phase's model and stream through
+   ``DistributedEngine`` over ``LocalGroup(4, cuda)`` (4 in-process ranks
+   of 4 experts, shards that are views of the served params): (a) "ep",
+   (b) "aurora" with round robin, (c) "aurora" with rounds from the
+   monitored counts adopted mid-stream, (d) (b) with the overlap. Gates:
+   the four streams identical, every request complete, finite logits,
+   exact launch counts (decode_attn 8 per decode step; moe_gmm 8 x 4 per
+   decode step and per prefill, 8 x 4 x (R + 1) with the overlap's R
+   rounds), the EP layer within 2e-2 of the plain EP layer (fp32) and
+   of the unsharded kernel layer, the peak within 1 GB of the serve phase's.
+   Printed: decode-step ms in alternated rounds, a profile of the (b)
+   and (d) decode steps, one rank's ``moe_gmm`` against its bound, the
+   round copies' bytes and ms, the drops of a padded 256-token prefill.
+   The exchange is in-process: no network cost is measured.
+
+Phase 4 also serves the reduced model widened to 8 experts (cf 8.0)
+through ``DistributedEngine`` over ``LocalGroup(4, cuda)``: "ep", "aurora"
+(round robin, and rounds adopted from a trace), the overlap, and a
+``ChaosHarness`` loss of rank 3 that rebuilds the group over 2 ranks;
+kernel streams equal plain ones and all equal the unsharded stream. The
+parity phase holds ``moe_gmm`` at one EP rank's shapes too: (4, 8, 4096)
+and (4, 2, 4096) in bf16.
 
 The parity phase also holds ``moe_gmm`` at replicated group sizes and with
 NaN-poisoned experts (NaN exactly in a live poisoned group's live rows,
@@ -227,6 +249,12 @@ def phase_parity():
         ((3, 96, 136), 40, torch.bfloat16, [0, 40, 13]),
         ((2, 64, 128), 100, torch.bfloat16, [100, 70]),
         ((3, 96, 128), 40, torch.float32, [0, 40, 13]),
+        # One EP rank's experts (16 over 4 ranks): the synchronous body's
+        # received buckets at decode (4 sources x C = 2, each source's
+        # kept rows a prefix of its segment; the group size is the live
+        # extent) and the pipeline's per-source chunks (C = 2).
+        ((4,) + full[1:], 8, torch.bfloat16, [0, 6, 8, 3]),
+        ((4,) + full[1:], 2, torch.bfloat16, [2, 0, 1, 2]),
     ]
     # The decode bucket over the physical groups of a replication: each
     # hot expert's rows split over its copies (``physical_group_sizes``).
@@ -379,6 +407,93 @@ def phase_reference():
     require(all(as_serial.values()), "reference",
             f"chunked streams differ from the serialised ones: {as_serial}")
     _reference_colocated(cfg, model)
+    _reference_ep(cfg)
+
+
+def _widen(cfg, n_experts: int):
+    """``cfg`` with ``n_experts`` experts at capacity factor 8.0 (no drops
+    on either side, as in the reference's EP tests)."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, n_experts=n_experts, capacity_factor=8.0))
+
+
+def _reference_ep(cfg):
+    """``DistributedEngine`` over ``LocalGroup(4, cuda)`` on the reduced
+    model widened to 8 experts (cf 8.0): "ep", "aurora" with round robin,
+    "aurora" with rounds adopted from a trace mid-stream, and the
+    round-pipelined overlap, each through the kernels and through the
+    plain path; then a ``ChaosHarness`` loss of rank 3 that rebuilds the
+    group over ranks 0 and 1 (``adopt_degraded``). Gates: kernel streams
+    equal plain ones, and every stream equals the unsharded kernel
+    stream."""
+    from repro_torch.core import (AuroraPlanner, homogeneous_cluster,
+                                  synthetic_trace)
+    from repro_torch.distributed import LocalGroup
+    from repro_torch.models import Model
+    from repro_torch.serving import (ChaosHarness, ContinuousEngine,
+                                     DeviceLoss, DistributedEngine,
+                                     EngineConfig, FaultInjector, FaultPlan,
+                                     HealthMonitor, serve_stream)
+    cfg = _widen(cfg, 8)
+    model = Model(cfg, device="cuda")
+    params = model.init(0)
+    trace = synthetic_trace("drift", n_experts=8, n_layers=2, seed=9)
+
+    def reqs():
+        return _stream(cfg, 6, 5, 20, 4, 12, seed=1)
+
+    base = ContinuousEngine(model, params, batch_slots=3, cache_cap=64,
+                            config=EngineConfig(kernels=True))
+    want = [list(r.out_tokens) for r in base.serve(reqs())]
+    streams = {}
+    for name, impl, overlap in (("ep", "ep", False),
+                                ("aurora_round_robin", "aurora", False),
+                                ("aurora_adopted", "aurora", False),
+                                ("overlap", "aurora", True)):
+        for kernels in (True, False):
+            eng = DistributedEngine(
+                model, params, batch_slots=3, cache_cap=64,
+                group=LocalGroup(4, "cuda"), moe_impl=impl, overlap=overlap,
+                config=EngineConfig(kernels=kernels))
+            rs = reqs()
+            if name == "aurora_adopted":
+                def step(eng=eng):
+                    worked = eng.step()
+                    if eng.decode_steps == 4 and eng.rounds is None:
+                        eng.adopt(trace)
+                    return worked
+                serve_stream(step, [(eng, rs)])
+                require(eng.rounds is not None, "reference",
+                        "no rounds adopted mid-stream")
+            else:
+                eng.serve(rs)
+            streams[name, kernels] = [list(r.out_tokens) for r in rs]
+    inj = FaultInjector(FaultPlan((DeviceLoss(step=3, device=3),)),
+                        n_devices=4, health=HealthMonitor(
+                            n_devices=4, heartbeat_timeout=2))
+    eng = DistributedEngine(model, params, batch_slots=3, cache_cap=64,
+                            group=LocalGroup(4, "cuda"), overlap=True,
+                            config=EngineConfig(kernels=True,
+                                                step_wrapper=inj.wrap))
+    harness = ChaosHarness(eng, inj,
+                           planner=AuroraPlanner(homogeneous_cluster(8)),
+                           trace=trace)
+    streams["degraded", True] = [list(r.out_tokens)
+                                 for r in harness.serve(reqs())]
+    kernel_plain = {name: streams[name, True] == streams[name, False]
+                    for name, k in streams if k and (name, False) in streams}
+    unsharded = {name: streams[name, True] == want for name, k in streams
+                 if k}
+    emit("reference", engines="DistributedEngine over LocalGroup(4, cuda)",
+         experts=8, capacity_factor=8.0, kernel_equals_plain=kernel_plain,
+         equals_unsharded_kernel_stream=unsharded,
+         degraded_ranks=eng.group.n,
+         recoveries=[r["action"] for r in harness.recoveries])
+    require(all(kernel_plain.values()), "reference",
+            f"EP kernel streams differ from the plain ones: {kernel_plain}")
+    require(all(unsharded.values()) and eng.group.n == 2, "reference",
+            f"EP streams differ from the unsharded one: {unsharded}, "
+            f"degraded group of {eng.group.n} ranks")
 
 
 def _reference_colocated(cfg, model):
@@ -1466,6 +1581,256 @@ def phase_telemetry(model, params, want):
     return total
 
 
+def _ep_layer_checks(model, params, eng):
+    """Layer 0's MoE on one real decode batch (the embeddings of the
+    engine's current tokens, normed) and one 256-token prefill (the
+    stream's longest prompt in its padded bucket): the EP layer over
+    ``eng``'s group against the plain EP layer (same ranks,
+    ``_experts_ffn``) and, at the decode batch, the unsharded
+    ``moe_apply_kernel`` (both drop-free there: the capacity clamps to the
+    token count). The plain layer runs on fp32 copies of the tokens and
+    the experts, as the kernels' plain versions upcast (``kernels/ref.py``):
+    in bf16 it rounds each product to bf16 and lands as far from the fp32
+    layer as the kernel does (PERF.md §6), so that comparison is
+    printed beside, not gated. Also the dropped assignments of the
+    prefill, EP (per-source capacity) against unsharded."""
+    import torch
+    from repro_torch.distributed.alltoall import ep_dispatch_combine
+    from repro_torch.models import moe as tm
+    from repro_torch.models.layers import rmsnorm
+    cfg = model.cfg
+    layer = params["segments"][0][0]
+    p0 = {"router": layer["moe"]["router"][0],
+          "experts": {k: v[0] for k, v in layer["moe"]["experts"].items()}}
+    ex32 = {k: v.float() for k, v in p0["experts"].items()}
+    kc = model.with_kernels().kernels
+    pc = eng.model.pc
+    # The stream's longest prompt, left-padded with 0 to its 256 bucket as
+    # the engine pads it (the pad rows all route alike, so they drop).
+    prompt = max((r.prompt for r in _stream(cfg, 10, 64, 200, 16, 64,
+                                            seed=0)), key=len)
+    padded = [0] * (256 - len(prompt)) + [int(t) for t in prompt]
+    toks = {"decode": eng.tokens[:, 0],
+            "prefill256": torch.tensor(padded, device="cuda")}
+    out = {}
+    for name, t in toks.items():
+        x = params["embed"][t] * cfg.d_model ** 0.5
+        x = rmsnorm(layer["ln2"][0], x, cfg.norm_eps)
+        y_k, _ = ep_dispatch_combine(x, p0["router"], p0["experts"], cfg.moe,
+                                     cfg.act, pc, kernels=kc)
+        y_p, _ = ep_dispatch_combine(x.float(), p0["router"], ex32, cfg.moe,
+                                     cfg.act, pc)
+        y_pb, _ = ep_dispatch_combine(x, p0["router"], p0["experts"],
+                                      cfg.moe, cfg.act, pc)
+        row = {"tokens": int(t.numel()),
+               "max_abs_y": float(y_k.float().abs().max()),
+               "vs_plain_ep_max_abs_err": max_errs(y_k, y_p)[0],
+               "vs_bf16_plain_ep_max_abs_err": max_errs(y_k, y_pb)[0],
+               "bf16_plain_vs_plain_ep_max_abs_err": max_errs(y_pb, y_p)[0]}
+        if name == "decode":
+            y_u, _ = tm.moe_apply_kernel(p0, x, cfg.moe, cfg.act, kc)
+            row["vs_unsharded_max_abs_err"] = max_errs(y_k, y_u)[0]
+        else:
+            _, idx, _ = tm.route(p0["router"], x, cfg.moe)
+            k, e = cfg.moe.top_k, cfg.moe.n_experts
+            cap = tm.capacity(256, k, e, cfg.moe.capacity_factor)
+            _, keep = tm.dispatch_indices(idx, e, cap)
+            n = pc.group.n
+            t_loc = 256 // n
+            cap_loc = tm.capacity(t_loc, k, e, cfg.moe.capacity_factor)
+            kept = sum(int(tm.dispatch_indices(idx[r * t_loc:(r + 1) * t_loc],
+                                               e, cap_loc)[1].sum())
+                       for r in range(n))
+            row.update(dropped_unsharded=256 * k - int(keep.sum()),
+                       dropped_ep=256 * k - kept, capacity_unsharded=cap,
+                       capacity_per_source=cap_loc)
+        out[name] = row
+    return out
+
+
+def _exchange_ms(group, n_ep, epd, cap, d, dtype, rounds, flush):
+    """Device ms of one dispatch exchange of the decode step's buckets
+    over ``group`` (one copy per pair of each round), and its bytes."""
+    import torch
+    from repro_torch.distributed.alltoall import ep_all_to_all
+    bufs = [torch.randn((n_ep, epd, cap, d), device="cuda").to(dtype)
+            for _ in range(n_ep)]
+    before = group.copy_bytes
+    ep_all_to_all(bufs, group, rounds)
+    # The monolithic exchange is one transposing copy of every buffer.
+    nbytes = (group.copy_bytes - before if rounds is not None
+              else sum(b.numel() * b.element_size() for b in bufs))
+    return time_ms(lambda: ep_all_to_all(bufs, group, rounds), flush), nbytes
+
+
+def phase_serve_ep(model, params, want, solo, monitor, serve_peak_gb):
+    """The serve phase's model and stream through ``DistributedEngine`` over
+    ``LocalGroup(4, cuda)``: 4 in-process ranks of 4 experts each, whose
+    expert shards are views of the served params. (a) "ep"; (b) "aurora"
+    with round robin; (c) "aurora" with rounds from ``rounds_from_trace``
+    on the monitored counts of the replicated phase's unreplicated run,
+    adopted mid-stream; (d) (b) with the overlap. Gates: the four streams
+    identical, every request complete, finite logits, exact launch counts
+    (decode_attn 8 per decode step; moe_gmm 8 x 4 per decode step and per
+    prefill on the synchronous paths, 8 x 4 x (R + 1) with the overlap's R
+    rounds), the EP layer within 2e-2 of the plain EP layer (fp32) at a
+    decode batch and a 256-token prefill and of the unsharded kernel layer at the
+    decode batch, the peak within 1 GB of the serve phase's. Printed:
+    decode-step ms in alternated rounds (unsharded, a, b, d), profiles of
+    the (b) and (d) decode steps, one rank's ``moe_gmm`` against its bound
+    at the synchronous and the pipelined bucket shapes, the round copies'
+    bytes and ms, the prefill's dropped assignments EP against
+    unsharded."""
+    import torch
+    from repro_torch.distributed import LocalGroup, round_robin_rounds
+    from repro_torch.serving import (ContinuousEngine, DistributedEngine,
+                                     EngineConfig, rounds_from_trace)
+    cfg = model.cfg
+    n_ep, n_e = 4, cfg.moe.n_experts
+    epd = n_e // n_ep
+    emit("serve_ep", note="the exchange is in-process on one card: the "
+         "ranks' round transfers are device-to-device copies, so the cost "
+         "of a network between cards is not measured here")
+    adopted = rounds_from_trace(monitor.trace(), n_ep)
+    runs = {"a_ep": ("ep", False), "b_aurora_round_robin": ("aurora", False),
+            "c_aurora_adopted": ("aurora", False),
+            "d_aurora_overlap": ("aurora", True)}
+    streams, engines, total = {}, {}, {"moe_gmm": 0, "decode_attn": 0}
+    group_copies = {}
+    for name, (impl, overlap) in runs.items():
+        group = LocalGroup(n_ep, "cuda")
+        eng = DistributedEngine(model, params, batch_slots=SLOTS,
+                                cache_cap=CACHE_CAP, group=group,
+                                moe_impl=impl, overlap=overlap,
+                                config=EngineConfig(kernels=True))
+        eng.serve(_stream(cfg, 1, 64, 64, 2, 2, seed=2))      # warm-up
+        torch.cuda.synchronize()
+        state = {}
+        stepper = eng
+        if name == "c_aurora_adopted":
+            def step(eng=eng):
+                worked = eng.step()
+                if eng.decode_steps >= 24 and "at" not in state:
+                    eng.adopt(monitor.trace())
+                    state["at"] = eng.decode_steps
+                return worked
+            stepper = _Stepper(eng, step)
+        copies0 = (group.copies, group.copy_bytes)
+        reqs = _stream(cfg, 10, 64, 200, 16, 64, seed=0)
+        launches, calls, numbers = _serve_run(stepper, [(eng, reqs)])
+        phase = f"serve_ep[{name}]"
+        require(all(len(r.out_tokens) == r.max_new_tokens for r in reqs),
+                phase, "a request did not get all its tokens")
+        rounds = 1 + len(eng.rounds or round_robin_rounds(n_ep)) \
+            if overlap else 1
+        per_call = N_LAYERS * n_ep * rounds
+        want_l = {"decode_attn": calls["decode_steps"] * N_LAYERS,
+                  "moe_gmm": (calls["decode_steps"] + calls["prefill_calls"])
+                  * per_call}
+        require(launches == want_l, phase,
+                f"launch counts {launches} != expected {want_l}")
+        finite = _finite_decode(phase, eng, params)
+        require(numbers["max_memory_allocated_GB"] <= serve_peak_gb + 1.0,
+                phase, f"peak {numbers['max_memory_allocated_GB']} GB, the "
+                f"serve phase's {serve_peak_gb} GB + 1 GB allowed")
+        if name == "c_aurora_adopted":
+            require(eng.rounds == adopted and "at" in state, phase,
+                    f"rounds {eng.rounds} adopted at {state}")
+        streams[name] = [list(r.out_tokens) for r in reqs]
+        for k in total:
+            total[k] += launches[k]
+        group_copies[name] = (group.copies - copies0[0],
+                              group.copy_bytes - copies0[1])
+        emit("serve_ep", ok=True, run=name, moe_impl=impl, overlap=overlap,
+             ranks=n_ep, transport=group.transport,
+             rounds=[list(r) for r in (eng.rounds or ())],
+             adopted_at=state.get("at"), **numbers, solo_step_ms={
+                 k: solo[k] for k in ("step_ms_mean", "step_ms_p50",
+                                      "step_ms_p95")},
+             launches=launches, moe_gmm_per_call=per_call,
+             round_copies=group_copies[name][0],
+             round_copy_bytes=group_copies[name][1],
+             round_copy_bytes_per_call=group_copies[name][1] / max(
+                 1, calls["decode_steps"] + calls["prefill_calls"]),
+             equals_serve_stream=streams[name] == want, logits_finite=finite)
+        if name != "c_aurora_adopted":          # kept for the timing
+            engines[name] = eng
+        del eng
+    same = all(v == streams["a_ep"] for v in streams.values())
+    emit("serve_ep", identical=same,
+         equals_serve_stream={k: v == want for k, v in streams.items()})
+    require(same, "serve_ep", "the EP runs' streams differ from each other")
+
+    layer = _ep_layer_checks(model, params, engines["b_aurora_round_robin"])
+    ok = (all(r["vs_plain_ep_max_abs_err"] <= 2e-2 for r in layer.values())
+          and layer["decode"]["vs_unsharded_max_abs_err"] <= 2e-2)
+    emit("serve_ep", layer_checks=layer, tol=2e-2, ok=ok)
+    require(ok, "serve_ep", f"EP layer errors {layer}")
+
+    unsharded = ContinuousEngine(model, params, batch_slots=SLOTS,
+                                 cache_cap=CACHE_CAP,
+                                 config=EngineConfig(kernels=True))
+    unsharded.serve(_stream(cfg, 10, 64, 200, 16, 64, seed=0))
+    fns = {"unsharded": _frozen_decode(unsharded)}
+    fns.update({k: _frozen_decode(engines[k]) for k in
+                ("a_ep", "b_aurora_round_robin", "d_aurora_overlap")})
+    rounds_ms, medians = _decode_rounds(fns)
+    emit("serve_ep", decode_step_ms_rounds=rounds_ms,
+         decode_step_ms_median=medians)
+    _profile("ep_aurora_decode", fns["b_aurora_round_robin"], 10)
+    _profile("ep_aurora_overlap_decode", fns["d_aurora_overlap"], 10)
+
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for step, c, sizes in (("ep_rank_sync", n_ep * 2, [6, 8, 0, 3]),
+                           ("ep_rank_overlap_chunk", 2, [2, 1, 0, 2])):
+        rows.append(_rank_moe_timing(model, params, epd, c, sizes, gen,
+                                     flush))
+        emit("timing", name="moe_gmm", step=step, **rows[-1])
+    for name, rounds in (("monolithic", None),
+                         ("round_robin", round_robin_rounds(n_ep))):
+        ms, nbytes = _exchange_ms(LocalGroup(n_ep, "cuda"), n_ep, epd, 2,
+                                  cfg.d_model, params["embed"].dtype, rounds,
+                                  flush)
+        emit("timing", name="ep_exchange", exchange=name,
+             shape=[n_ep, epd, 2, cfg.d_model], ms=ms,
+             round_copy_bytes=nbytes, per_decode_step=2 * N_LAYERS,
+             ms_per_decode_step=ms * 2 * N_LAYERS)
+    del engines, unsharded, flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def _rank_moe_timing(model, params, epd, c, sizes, gen, flush):
+    """``moe_gmm`` over one rank's ``epd`` experts (views of layer 0's
+    leaves) at bucket height ``c`` with group sizes ``sizes``; bound: the
+    live experts' weights, x and y once each, and the group sizes."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    cfg = model.cfg
+    d, f = cfg.d_model, cfg.moe.d_ff
+    ex = {k: v[0][:epd] for k, v in
+          params["segments"][0][0]["moe"]["experts"].items()}
+    dtype = ex["w_gate"].dtype
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    buf = torch.randn((epd, c, d), generator=gen, device="cuda").to(dtype)
+    buf[torch.arange(c, device="cuda")[None, :] >= gs[:, None]] = 0
+    args = (buf, ex["w_gate"], ex["w_up"], ex["w_down"])
+    ms = time_ms(lambda: moe_gmm(*args, group_sizes=gs), flush)
+    plain = time_ms(lambda: ref.moe_ffn_ref(*args, group_sizes=gs), flush, 5)
+    live = int((gs > 0).sum())
+    nbytes = ((live * 3 * d * f + 2 * buf.numel()) * buf.element_size()
+              + epd * 4)
+    b_ms, b_by = bound(nbytes, 2 * 3 * d * f * int(gs.sum()))
+    return {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "shape": [epd, c, d, f],
+            "group_sizes": sizes, "live_experts": live, "bytes": nbytes,
+            "bound_share": b_ms / ms}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke.py runs from the root of a checkout of the repo "
@@ -1492,10 +1857,14 @@ def main() -> int:
     replicated, spec, monitor = phase_serve_replicated(
         model, params, streams, solo)
     chaos = phase_chaos(model, params, streams, spec, monitor)
+    gc.collect()                      # the chaos engine's injector cycle
+    torch.cuda.empty_cache()
     traced = phase_telemetry(model, params, streams)
+    ep = phase_serve_ep(model, params, streams, solo, monitor,
+                        solo["max_memory_allocated_GB"])
     for r in rows:
         r["launches"] += sum(part[r["name"]] for part in (
-            colocated, replicated, chaos, traced))
+            colocated, replicated, chaos, traced, ep))
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "launches",

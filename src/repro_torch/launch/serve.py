@@ -13,6 +13,12 @@
   python -m repro_torch.launch.serve --arch phi3.5-moe-42b-a6.6b --reduced \
       --device cpu --colocate-with phi3.5-moe-42b-a6.6b --kernels \
       --prefill-chunk 4 --replan-interval 8
+  python -m repro_torch.launch.serve --arch phi3.5-moe-42b-a6.6b --reduced \
+      --device cpu --experts 8 --mesh 4 --overlap --kernels --batch 2 \
+      --cache-cap 32 --num-requests 4
+  torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+      --arch phi3.5-moe-42b-a6.6b --reduced --device cpu --experts 8 \
+      --mesh 4 --kernels --batch 2 --cache-cap 32 --num-requests 4
 
 The counterpart of ``python -m repro.launch.serve`` for the continuous
 paths. ``--colocate-with ARCH`` serves a second model (weights from seed
@@ -32,6 +38,15 @@ cuts the depth of a full-width config so its weights fit one card.
 events) and BASE.trace.json (Chrome trace-event JSON, for Perfetto) on
 exit; ``--metrics-out PATH`` writes the final metrics snapshot as JSON.
 Both are written on every exit path, Ctrl-C included.
+``--mesh N`` serves expert-parallel over N ranks (``DistributedEngine``,
+or ``DistributedColocatedEngine`` with ``--colocate-with``): under
+``torchrun`` each process is one rank of a ``torch.distributed`` group
+(N must be the world size; NCCL on the card, gloo on the CPU), otherwise
+N in-process ranks on ``--device``; the launcher prints which.
+``--moe-impl`` picks the monolithic all-to-all (``ep``) or Aurora's
+permutation rounds (``aurora``, the default, planned from a synthetic
+trace), ``--overlap`` the round-pipelined dispatch, ``--experts E``
+overrides the expert count (reduced configs have 4).
 Weights are random, from seed 0.
 """
 
@@ -88,6 +103,19 @@ def main(argv=None) -> int:
                     help="serve through the CUDA kernel path (sort-based "
                          "MoE dispatch + moe_gmm, decode_attn)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", type=int, default=None,
+                    help="serve expert-parallel over N ranks: the torchrun "
+                         "world (N must equal it) or N in-process ranks "
+                         "on --device")
+    ap.add_argument("--moe-impl", default=None, choices=["ep", "aurora"],
+                    help="--mesh dispatch: monolithic all-to-all (ep) or "
+                         "scheduled permutation rounds (aurora, default)")
+    ap.add_argument("--overlap", action="store_true",
+                    help="--mesh: round-pipelined dispatch (expert FFN "
+                         "chunks overlap in-flight rounds)")
+    ap.add_argument("--experts", type=int, default=None,
+                    help="override the MoE expert count (reduced configs "
+                         "have 4, which rarely divides a mesh)")
     ap.add_argument("--trace-out", default=None, metavar="BASE",
                     help="record telemetry and write BASE.jsonl (structured "
                          "spans + events) and BASE.trace.json (Chrome "
@@ -96,6 +124,11 @@ def main(argv=None) -> int:
                     help="write the final metrics snapshot as JSON on exit "
                          "(also on Ctrl-C)")
     args = ap.parse_args(argv)
+    if args.mesh is None and (args.overlap or args.moe_impl is not None):
+        # Without a mesh these flags would silently serve the one-device
+        # path while the user believes they measured EP dispatch.
+        raise SystemExit("--overlap/--moe-impl configure the distributed "
+                         "EP dispatch; add --mesh N (or drop them)")
 
     telemetry = None
     if args.trace_out or args.metrics_out:
@@ -131,6 +164,7 @@ def _serve(args, telemetry) -> int:
 
     from repro_torch.configs import get_config
     from repro_torch.models import Model
+    from repro_torch import serving as tserving
     from repro_torch.serving import (ContinuousEngine, EdfAdmission,
                                      EngineConfig, TenantSpec,
                                      poisson_requests)
@@ -158,24 +192,41 @@ def _serve(args, telemetry) -> int:
                               prefill_pool=args.prefill_pool,
                               kernels=args.kernels, telemetry=telemetry)
 
+    device = args.device
+    group = None
+    if args.mesh is not None:
+        from repro_torch.launch.mesh import local_device, make_ep_group
+        device = local_device(args.device)
+        group = make_ep_group(args.mesh, device)
+
     def load(arch: str):
         cfg = get_config(arch)
         if args.reduced:
             cfg = cfg.reduced()
         if args.n_layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
-        return cfg, Model(cfg, device=args.device)
+        if args.experts is not None:
+            if cfg.moe is None:
+                raise SystemExit(f"{arch} has no MoE layers to widen")
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, n_experts=args.experts))
+        return cfg, Model(cfg, device=device)
 
     cfg, model = load(args.arch)
     params = model.init(0)
     rng = np.random.default_rng(0)
     if args.colocate_with is not None:
-        return _serve_colocated(args, config, cfg, model, params, load, rng)
+        return _serve_colocated(args, config, cfg, model, params, load, rng,
+                                group)
     if args.replan_interval is not None:
         raise SystemExit("--replan-interval needs --colocate-with")
-    eng = ContinuousEngine(
-        model, params, batch_slots=args.batch, cache_cap=args.cache_cap,
-        config=config)
+    kw = dict(batch_slots=args.batch, cache_cap=args.cache_cap,
+              config=config)
+    if group is not None:
+        eng = _distributed(args, cfg, group, tserving.DistributedEngine,
+                           model, params, **kw)
+    else:
+        eng = ContinuousEngine(model, params, **kw)
     reqs = poisson_requests(rng, args.num_requests, args.arrival_rate,
                             cfg.vocab, args.prompt_len,
                             max(1, args.max_new_tokens // 2),
@@ -189,10 +240,34 @@ def _serve(args, telemetry) -> int:
     return 0
 
 
-def _serve_colocated(args, config, cfg, model, params, load, rng) -> int:
-    """Two models in ``ColocatedContinuousEngine``: the pairing is planned
-    from synthetic traces and re-seated into model B's params in place;
-    two Poisson streams, one per model."""
+def _distributed(args, cfg, group, engine_cls, *models_params, **kw):
+    """An expert-parallel engine over ``group``: "aurora" rounds planned
+    from a synthetic trace, printed with the transport."""
+    from repro_torch.core import synthetic_trace
+    from repro_torch.serving import rounds_from_trace
+    if cfg.moe is None:
+        raise SystemExit(f"{cfg.arch_id} has no MoE layers — --mesh serves "
+                         "expert-parallel (nothing to shard); drop --mesh "
+                         "or pick an MoE arch")
+    impl = args.moe_impl or "aurora"
+    if impl == "aurora" and "plan" not in kw:
+        hist = synthetic_trace("hist", n_experts=cfg.moe.n_experts,
+                               n_layers=2, seed=0)
+        kw["rounds"] = rounds_from_trace(hist, group.n)
+    eng = engine_cls(*models_params, group=group, moe_impl=impl,
+                     overlap=args.overlap, **kw)
+    print(f"distributed EP serving: {group.transport}, impl={impl}, "
+          f"overlap={args.overlap}, {len(eng.rounds or ())} scheduled "
+          "rounds")
+    return eng
+
+
+def _serve_colocated(args, config, cfg, model, params, load, rng,
+                     group=None) -> int:
+    """Two models in ``ColocatedContinuousEngine`` (its distributed
+    counterpart over ``group``): the pairing is planned from synthetic
+    traces and re-seated into model B's params in place; two Poisson
+    streams, one per model."""
     from repro_torch.core import (AuroraPlanner, homogeneous_cluster,
                                   synthetic_trace)
     from repro_torch.serving import (ColocatedContinuousEngine,
@@ -218,10 +293,18 @@ def _serve_colocated(args, config, cfg, model, params, load, rng) -> int:
                              "equal expert counts")
         replan = OnlineReplanner(planner, interval=args.replan_interval,
                                  threshold=args.replan_threshold)
-    eng = ColocatedContinuousEngine(
-        model, model_b, params, params_b, batch_slots=args.batch,
-        cache_cap=args.cache_cap, config=config,
-        pair=list(plan.pair) if plan else None, replan=replan)
+    kw = dict(batch_slots=args.batch, cache_cap=args.cache_cap,
+              config=config, pair=list(plan.pair) if plan else None,
+              replan=replan)
+    if group is not None:
+        from repro_torch.serving import DistributedColocatedEngine
+        if plan is not None:
+            kw["plan"] = plan
+        eng = _distributed(args, cfg, group, DistributedColocatedEngine,
+                           model, model_b, params, params_b, **kw)
+    else:
+        eng = ColocatedContinuousEngine(model, model_b, params, params_b,
+                                        **kw)
     lo = max(1, args.max_new_tokens // 2)
     reqs_a = poisson_requests(rng, args.num_requests, args.arrival_rate,
                               cfg.vocab, args.prompt_len, lo,

@@ -8,6 +8,7 @@ package's layouts. Reductions and products the reference asks in fp32
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
@@ -31,6 +32,39 @@ class KernelConfig:
     """
 
     block_c: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelContext:
+    """How the MoE layers are laid out over an expert-parallel group (the
+    counterpart of the reference's ``ParallelContext``, EP part).
+
+    ``group``: the ``distributed.EPGroup`` whose ranks host the experts in
+    contiguous blocks of E/n (None: one device). ``moe_impl``: "dense" (no
+    expert parallelism), "ep" (monolithic all-to-all) or "aurora" (the
+    permutation rounds ``aurora_rounds``; round robin while None).
+    ``ep_overlap``: the round-pipelined dispatch
+    (``distributed.overlap``). The reference's mesh axes, tensor
+    parallelism and sequence sharding have no counterpart: the dense part
+    runs replicated on every rank. The port's ``kernels`` and
+    ``replication`` stay on ``Model``."""
+
+    group: Any = None
+    moe_impl: str = "dense"
+    aurora_rounds: tuple[tuple[int, ...], ...] | None = None
+    ep_overlap: bool = False
+
+    def __post_init__(self):
+        if self.moe_impl not in ("dense", "ep", "aurora"):
+            raise ValueError(f"moe_impl {self.moe_impl!r} is not one of "
+                             "dense, ep, aurora")
+
+    @property
+    def expert_parallel(self) -> bool:
+        return self.group is not None and self.moe_impl in ("ep", "aurora")
+
+
+NO_PARALLEL = ParallelContext()
 
 
 def rmsnorm(w, x, eps: float):

@@ -3,7 +3,9 @@
 ``Model(cfg)`` runs on the card by default and raises if there is none;
 only an explicit ``device="cpu"`` runs on the CPU. ``replication`` is the
 physical layout of the params' MoE expert leaves (the counterpart of the
-reference's ``ParallelContext.moe_replication``); every call passes it to
+reference's ``ParallelContext.moe_replication``) and ``pc`` the
+expert-parallel layout of the MoE layers (``layers.ParallelContext``;
+``serving.distributed.distribute`` binds one); every call passes both to
 the MoE layers.
 """
 
@@ -14,7 +16,7 @@ import dataclasses
 import torch
 
 from . import transformer as tf
-from .layers import KernelConfig
+from .layers import KernelConfig, ParallelContext
 from .moe import ReplicationSpec
 
 
@@ -33,6 +35,7 @@ class Model:
     device: object = "cuda"
     kernels: KernelConfig | None = None
     replication: ReplicationSpec | None = None
+    pc: ParallelContext | None = None
 
     def __post_init__(self):
         object.__setattr__(self, "device", resolve_device(self.device))
@@ -74,7 +77,7 @@ class Model:
                          mode="prefill", cache=cache, kernels=self.kernels,
                          continuation=continuation,
                          collect_moe_stats=collect_moe_stats,
-                         replication=self.replication)
+                         replication=self.replication, pc=self.pc)
         if collect_moe_stats:
             return out[0], cache, out[2]
         return out[0], cache
@@ -87,7 +90,7 @@ class Model:
         logits, _ = tf.forward(params, self.cfg, tokens=token, mode="decode",
                                cache=cache, kernels=self.kernels,
                                row_mask=row_mask,
-                               replication=self.replication)
+                               replication=self.replication, pc=self.pc)
         return logits, cache
 
     def decode_step_stats(self, params, token, cache, row_mask=None):
@@ -97,7 +100,7 @@ class Model:
         logits, _, stats = tf.forward(
             params, self.cfg, tokens=token, mode="decode", cache=cache,
             kernels=self.kernels, row_mask=row_mask, collect_moe_stats=True,
-            replication=self.replication)
+            replication=self.replication, pc=self.pc)
         return logits, cache, stats[:, :, 0, :]          # S == 1 at decode
 
     def prefill_slot(self, params, inputs, cache, slot: int, *, cap: int,

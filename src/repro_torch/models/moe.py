@@ -1,5 +1,5 @@
 """Mixture-of-Experts layer: router, capacity, dispatch, expert FFN, combine
-(port of the single-device paths of ``repro/models/moe.py``).
+(port of ``repro/models/moe.py``).
 
 - ``moe_apply_dense``: the reference dispatch (one-hot slot positions), kept
   as the plain oracle the tests compare with.
@@ -8,12 +8,16 @@
   ``kernels.ops.moe_ffn`` (the CUDA ``moe_gmm`` kernel on the card). It is
   the reference's bucketed branch, the one it takes on a TPU; the CPU-only
   compact branch is not ported.
+- ``moe_apply_ep``: expert-parallel dispatch over an EP group
+  (``ParallelContext``), the monolithic all-to-all or Aurora's permutation
+  rounds, each rank's experts through ``moe_gmm``
+  (``repro_torch.distributed``).
 
 Hot-expert replication (``ReplicationSpec``): routing, capacity and drops
 stay in the LOGICAL frame; only the bucket coordinates move, rank r of
 expert e landing on physical slot ``base[e] + r % counts[e]`` at position
 ``r // counts[e]``. Replicas are byte-identical copies, so the routed
-function is unchanged. The expert-parallel paths are not ported yet.
+function is unchanged.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from ..core.errors import FaultError
 from ..kernels import ops as kops
 from ..kernels.moe_gmm import align_capacity
 from ..kernels.ref import act_fn
-from .layers import KernelConfig, ffn_apply
+from .layers import KernelConfig, ParallelContext, ffn_apply
 
 
 # ---------------------------------------------------------------------------
@@ -474,11 +478,52 @@ def moe_apply_kernel(p, x, moe, act: str, kernels: KernelConfig | None = None,
     return _with_counts(y.reshape(shape), aux, idx, shape, moe, return_counts)
 
 
+# ---------------------------------------------------------------------------
+# Expert-parallel dispatch: all-to-all baseline / Aurora rounds
+# ---------------------------------------------------------------------------
+
+def moe_apply_ep(p, x, moe, act: str, pc: ParallelContext,
+                 kernels: KernelConfig | None = None,
+                 return_counts: bool = False,
+                 replication: ReplicationSpec | None = None):
+    """Expert-parallel MoE layer over ``pc.group``
+    (``distributed.ep_dispatch_combine``): x (..., d), the same on every
+    rank, is split into per-rank token slices; each rank's experts (a
+    contiguous block of E/n, views of the expert leaves) run ``moe_gmm``
+    when ``kernels`` is given. ``pc.moe_impl`` picks the monolithic
+    all-to-all ("ep") or the permutation rounds ("aurora"),
+    ``pc.ep_overlap`` the round-pipelined body. ``return_counts=True``
+    appends the (..., E) routed-choice histogram, gathered from the ranks.
+    """
+    from ..distributed.alltoall import ep_dispatch_combine
+
+    shape = x.shape
+    d = shape[-1]
+    xt = x.reshape(-1, d)
+    out = ep_dispatch_combine(xt, p["router"], p["experts"], moe, act, pc,
+                              return_counts=return_counts, kernels=kernels,
+                              spec=replication)
+    y, aux = out[0], out[1]
+    if "shared" in p:
+        y = y + ffn_apply(p["shared"], xt, act)
+    if return_counts:
+        return (y.reshape(shape), aux,
+                out[2].reshape(shape[:-1] + (moe.n_experts,)))
+    return y.reshape(shape), aux
+
+
 def moe_apply(p, x, moe, act: str, kernels: KernelConfig | None = None,
               return_counts: bool = False,
-              replication: ReplicationSpec | None = None):
-    """Kernel dispatch when a ``KernelConfig`` is attached, else dense;
-    ``replication`` is the physical layout of ``p``'s expert leaves."""
+              replication: ReplicationSpec | None = None,
+              pc: ParallelContext | None = None):
+    """Expert-parallel dispatch when ``pc`` spans an EP group ("ep" or
+    "aurora"), else the kernel dispatch when a ``KernelConfig`` is
+    attached, else dense; ``replication`` is the physical layout of
+    ``p``'s expert leaves."""
+    if pc is not None and pc.expert_parallel:
+        return moe_apply_ep(p, x, moe, act, pc, kernels,
+                            return_counts=return_counts,
+                            replication=replication)
     if kernels is not None:
         return moe_apply_kernel(p, x, moe, act, kernels,
                                 return_counts=return_counts,

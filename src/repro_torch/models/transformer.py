@@ -168,11 +168,13 @@ def slice_cache_slot(cache, slot: int):
 # ---------------------------------------------------------------------------
 
 def _apply_layer(kind, p, x, entry, *, cfg, kernels, mode, pos, length,
-                 row_mask, collect_stats=False, replication=None):
+                 row_mask, collect_stats=False, replication=None, pc=None):
     """One layer. Returns (x, aux, counts): counts are the (B, S, E) routed
     choices of an E layer when ``collect_stats``, else None. The cache
     entry is updated in place. ``replication``: the physical layout of the
-    MoE expert leaves (``moe.ReplicationSpec``, None = one copy each)."""
+    MoE expert leaves (``moe.ReplicationSpec``, None = one copy each).
+    ``pc``: the expert-parallel layout of the MoE layers
+    (``layers.ParallelContext``, None = one device)."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     y = attn_mod.attn_block(p["attn"], h, cfg=cfg, pos=pos, cache=entry,
                             length=length, mode=mode, kernels=kernels,
@@ -183,10 +185,10 @@ def _apply_layer(kind, p, x, entry, *, cfg, kernels, mode, pos, length,
     if kind == "E" and collect_stats:
         y2, aux, counts = moe_apply(p["moe"], h2, cfg.moe, cfg.act, kernels,
                                     return_counts=True,
-                                    replication=replication)
+                                    replication=replication, pc=pc)
     elif kind == "E":
         y2, aux = moe_apply(p["moe"], h2, cfg.moe, cfg.act, kernels,
-                            replication=replication)
+                            replication=replication, pc=pc)
     else:
         y2, aux = ffn_apply(p["ffn"], h2, cfg.act), x.new_zeros((), dtype=torch.float32)
     return x + y2, aux, counts
@@ -194,7 +196,7 @@ def _apply_layer(kind, p, x, entry, *, cfg, kernels, mode, pos, length,
 
 def forward(params, cfg, *, tokens, mode, cache, kernels=None,
             continuation=False, row_mask=None, collect_moe_stats=False,
-            replication=None):
+            replication=None, pc=None):
     """Run the decoder stack in "prefill" or "decode" mode.
 
     prefill: tokens (B, S), a fresh prefill written from cache position 0;
@@ -212,6 +214,9 @@ def forward(params, cfg, *, tokens, mode, cache, kernels=None,
     (callers mask pad positions before aggregating prefill traffic).
     ``replication``: the physical layout of every MoE layer's expert leaves
     (``moe.ReplicationSpec``); the counts stay in the logical frame.
+    ``pc``: the expert-parallel layout (``layers.ParallelContext``): the
+    MoE layers dispatch over its EP group, everything else runs replicated
+    over the whole batch.
     """
     x = params["embed"][tokens]
     x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
@@ -241,7 +246,8 @@ def forward(params, cfg, *, tokens, mode, cache, kernels=None,
                 x, aux, counts = _apply_layer(
                     kind, p_l, x, entry, cfg=cfg, kernels=kernels, mode=mode,
                     pos=pos, length=length, row_mask=row_mask,
-                    collect_stats=collect_moe_stats, replication=replication)
+                    collect_stats=collect_moe_stats, replication=replication,
+                    pc=pc)
                 aux_total = aux_total + aux
                 if counts is not None:
                     per_kind[i].append(counts)

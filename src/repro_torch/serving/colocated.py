@@ -175,6 +175,11 @@ def build_lockstep_step(models: list[Model], collect_stats: bool):
     return step
 
 
+def _rounds_of(model: Model):
+    """A model's current permutation rounds (None off the "aurora" path)."""
+    return model.pc.aurora_rounds if model.pc is not None else None
+
+
 def _share_hub(replan, config: EngineConfig) -> None:
     """The re-planner publishes on the engine's hub unless it has one."""
     if replan is not None and config.telemetry is not None \
@@ -303,10 +308,17 @@ class ColocatedContinuousEngine:
             monitor=self.monitor_b)
         self._telemetry = config.telemetry
         _share_hub(replan, config)
-        self._step = wrap_step_callable(build_lockstep_step(
-            [model_a, model_b], collect_stats=replan is not None),
-            "lockstep_decode", config)
+        self._build_lockstep()
         self.decode_steps = 0
+
+    def _build_lockstep(self) -> None:
+        """(Re)build the lockstep step from the current models (rebuilt
+        when a distributed engine swaps its permutation rounds)."""
+        self._step = wrap_step_callable(build_lockstep_step(
+            [self.model_a, self.model_b],
+            collect_stats=self.replan is not None),
+            "lockstep_decode", self.config,
+            rounds=lambda: _rounds_of(self.model_a))
 
     @property
     def replan_events(self) -> list:
@@ -325,11 +337,16 @@ class ColocatedContinuousEngine:
         record_adoption(self._telemetry, "pairing", step=self.decode_steps,
                         pair=new_pair)
 
+    def _adopt_online(self, plan) -> None:
+        """Seam for the re-planning loop (the distributed engine refreshes
+        its permutation rounds on top)."""
+        self.adopt(plan)
+
     def _maybe_replan(self) -> None:
         new = self.replan.maybe_replan(self.decode_steps, self.monitor_a,
                                        self.monitor_b, self.pair)
         if new is not None:
-            self.adopt(new)
+            self._adopt_online(new)
 
     def step(self) -> bool:
         """Admission ticks of both pools, one lockstep decode, the routing
@@ -509,10 +526,11 @@ class MultiTenantContinuousEngine:
 
     def _build_lockstep(self) -> None:
         """(Re)build the N-tenant step from the current models (tenant
-        churn changes the list)."""
+        churn changes the list; a distributed engine's rounds swap too)."""
         self._step = wrap_step_callable(build_lockstep_step(
             self.models, collect_stats=self.replan is not None),
-            "lockstep_decode", self.config)
+            "lockstep_decode", self.config,
+            rounds=lambda: _rounds_of(self.models[0]))
 
     @property
     def replan_events(self) -> list:
@@ -547,11 +565,16 @@ class MultiTenantContinuousEngine:
         record_adoption(self._telemetry, "grouping", step=self.decode_steps,
                         groups=new_groups)
 
+    def _adopt_online(self, plan) -> None:
+        """Seam for the re-grouping loop (the distributed engine refreshes
+        its permutation rounds on top)."""
+        self.adopt(plan)
+
     def _maybe_regroup(self) -> None:
         new = self.replan.maybe_regroup(self.decode_steps, self.monitors,
                                         self.groups)
         if new is not None:
-            self.adopt(new)
+            self._adopt_online(new)
 
     # -- tenant churn ------------------------------------------------------
     def admit_tenant(self, model: Model | TenantSpec = None, params=None, *,

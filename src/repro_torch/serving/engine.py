@@ -108,14 +108,17 @@ def poisson_requests(rng, n: int, rate: float, vocab: int, prompt_len: int,
 
 
 def wrap_step_callable(fn, name: str, config: EngineConfig,
-                       tenant: str | None = None):
+                       tenant: str | None = None, rounds=None):
     """A step callable as every engine runs it: ``config.step_wrapper``
     innermost and, with a hub, its span wrapper ``name`` outermost, so the
-    span covers the wrapped call."""
+    span covers the wrapped call. ``rounds`` (a callable returning the
+    engine's current permutation rounds, or None) gives the span its
+    ``dispatch_round`` sub-spans."""
     if config.step_wrapper is not None:
         fn = config.step_wrapper(fn)
     if config.telemetry is not None:
-        fn = config.telemetry.wrap_step(fn, name, tenant=tenant)
+        fn = config.telemetry.wrap_step(fn, name, tenant=tenant,
+                                        rounds=rounds)
     return fn
 
 
@@ -201,9 +204,10 @@ class ContinuousEngine:
         """(Re)build the step callables from ``self.model``."""
         model = self.model
 
-        def wrap(fn, name):
-            return wrap_step_callable(fn, name, self.config,
-                                      tenant=self._tenant_label or None)
+        def wrap(fn, name, rounds=False):
+            return wrap_step_callable(
+                fn, name, self.config, tenant=self._tenant_label or None,
+                rounds=self._live_rounds if rounds else None)
         stats = self.monitor is not None
         self._prefill = wrap(partial(model.prefill_slot, cap=self.cache_cap,
                                      collect_moe_stats=stats), "prefill")
@@ -214,9 +218,18 @@ class ContinuousEngine:
             model.prefill_chunk_slot, first=False, cap=self.cache_cap,
             collect_moe_stats=stats), "prefill_chunk")
         self._decode = wrap(model.decode_step_stats if stats
-                            else model.decode_step, "decode_step")
+                            else model.decode_step, "decode_step",
+                            rounds=True)
         if self._pool_size > 1:
-            self._pool_step = wrap(self._make_pool_fn(stats), "pool_step")
+            self._pool_step = wrap(self._make_pool_fn(stats), "pool_step",
+                                   rounds=True)
+
+    def _live_rounds(self):
+        """The CURRENT permutation rounds (None off the "aurora" path), read
+        through ``self.model`` at call time so telemetry follows mid-stream
+        rounds swaps (``_rebind``)."""
+        pc = self.model.pc
+        return pc.aurora_rounds if pc is not None else None
 
     def _make_pool_fn(self, stats: bool):
         """One pooled engine step: the picked chunks, each a batch-1

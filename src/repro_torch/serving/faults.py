@@ -19,8 +19,11 @@
   construction (held on the host), and re-run the step; greedy decoding
   makes the re-run byte-identical to a never-faulted run. Device loss:
   re-queue the lost device's slots and, given a planner and a trace,
-  adopt a degraded plan (``plan_degraded(ep_compatible=False)`` then
-  ``adopt(plan.replication)``). Stragglers are recorded.
+  adopt a degraded plan: a distributed engine (one with
+  ``adopt_degraded``) gets ``plan_degraded(ep_compatible=True)`` and
+  rebuilds its EP group over the survivors; any other engine adopts
+  ``plan_degraded(ep_compatible=False)``'s replication. Stragglers are
+  recorded.
 """
 
 from __future__ import annotations
@@ -257,13 +260,17 @@ class ChaosHarness:
       replica survives, from the pristine copy, and re-run the step.
     * ``device_loss``: fail-stop: re-queue the slots resident on the lost
       device (``slots_of_device``; default round-robin ``slot % n``) and,
-      given a planner and a trace, adopt
-      ``plan_degraded(failed_devices=..., ep_compatible=False)``'s
-      replication (one card: a device is a group of slots, the experts
-      stay on the card). The planner's devices that a lost device stood
-      for are ``hosts_of_device(d)`` (default ``[d]``, the reference's
-      one-to-one frame); give it when the injector's devices are fewer
-      than the planner's.
+      given a planner and a trace, re-plan: an engine with
+      ``adopt_degraded`` (``DistributedEngine``) gets
+      ``plan_degraded(failed_devices=..., ep_compatible=True)`` and
+      rebuilds its EP group over the survivors; any other engine adopts
+      ``plan_degraded(..., ep_compatible=False)``'s replication (one
+      card: a device is a group of slots, the experts stay on the card).
+      The planner's devices that a lost device stood for are
+      ``hosts_of_device(d)`` (default: the engine's
+      ``planner_devices(d)``, a rank's block of expert slots, where it
+      has one, else ``[d]``, the reference's one-to-one frame); give it
+      when the injector's devices are fewer than the planner's.
     * ``straggler``: recorded in ``recoveries`` (re-planning around slow
       devices is the traffic monitor's drift loop, not a failover).
 
@@ -283,7 +290,9 @@ class ChaosHarness:
         self._slots_of_device = slots_of_device or (
             lambda d: [s for s in range(engine.batch_slots)
                        if s % injector.n_devices == d])
-        self._hosts_of_device = hosts_of_device or (lambda d: [d])
+        self._hosts_of_device = (hosts_of_device
+                                 or getattr(engine, "planner_devices", None)
+                                 or (lambda d: [d]))
         self.recoveries: list[dict] = []
         self._handled_loss: set[int] = set()
         spec = engine.model.replication
@@ -375,9 +384,17 @@ class ChaosHarness:
         if self.planner is not None and self.trace is not None:
             failed = sorted({h for lost in self._handled_loss
                              for h in self._hosts_of_device(lost)})
+            # A distributed engine rebuilds its EP group over the
+            # survivors: their count must divide the expert count, so the
+            # planner is asked for an EP-compatible degraded plan.
+            distributed = hasattr(eng, "adopt_degraded")
             plan = self.planner.plan_degraded(
-                self.trace, failed_devices=failed, ep_compatible=False)
-            eng.adopt(plan.replication)
+                self.trace, failed_devices=failed,
+                ep_compatible=distributed)
+            if distributed:
+                eng.adopt_degraded(plan)
+            else:
+                eng.adopt(plan.replication)
             entry["action"] = "requeued+replanned"
             entry["survivors"] = plan.survivors
         self._record_recovery(entry)

@@ -13,8 +13,9 @@ token.
   every step callable (through the engines' ``step_wrapper`` seam),
   exported as JSONL and as Chrome trace-event JSON (Perfetto). A step
   whose engine has a BvN round schedule gets per-round ``dispatch_round``
-  child spans (the measured window split evenly, marked ``estimated``);
-  the port's engines have no rounds yet, so none are emitted.
+  child spans (the measured window split evenly, marked ``estimated``):
+  the ``Distributed*`` engines on the "aurora" path feed their live
+  rounds to the decode, pool and lockstep spans.
 * Event bus: shed, re-plan, fault, adoption and recovery notices in one
   bounded, deterministic stream that interleaves with the spans.
 
