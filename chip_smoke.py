@@ -95,20 +95,43 @@ non-zero:
    and (d) decode steps, one rank's ``moe_gmm`` against its bound, the
    round copies' bytes and ms, the drops of a padded 256-token prefill.
    The exchange is in-process: no network cost is measured.
+14. serve_deepseek, run last, after the phi3.5 model, params and engines
+   are freed (under 1 GB must stay allocated): full-width DeepSeek-V3 cut
+   to 5 layers (the 3 published dense layers and 2 MoE layers; MLA, 256
+   experts top-8, sigmoid router, shared expert; bf16, ~53.2 GB) serving
+   the serve phase's stream one-shot, then through ``DistributedEngine``
+   over ``LocalGroup(4, cuda)`` (64 experts a rank) as "ep" and "aurora".
+   Gates: every request complete, finite logits, exact launch counts
+   (``moe_gmm`` 2 per decode step and per prefill, x 4 under EP;
+   ``decode_attn`` 0), the peak within 2 GB of the weights (EP: within
+   1 GB of the unsharded run's), ``moe_gmm`` within 2e-2 of its plain
+   version on the served layer's leaves at a real decode step's buckets
+   (256, 8, 7168, 2048), a 256-token prefill's and one EP rank's (over
+   slices of 32 experts: the plain version upcasts the weights), the EP
+   streams identical, the EP layer within 2e-2 of the unsharded kernel
+   layer at the decode batch. Printed: weights GB, init s, step ms, TTFT,
+   tok/s, ``moe_gmm`` ms beside its bound, a decode-step profile, EP
+   decode steps in alternated rounds, the phase's seconds.
 
-Phase 4 also serves the reduced model widened to 8 experts (cf 8.0)
-through ``DistributedEngine`` over ``LocalGroup(4, cuda)``: "ep", "aurora"
-(round robin, and rounds adopted from a trace), the overlap, and a
-``ChaosHarness`` loss of rank 3 that rebuilds the group over 2 ranks;
-kernel streams equal plain ones and all equal the unsharded stream. The
+Phase 4 also serves reduced DeepSeek-V3 (fp32, D + E, 4 experts top-2,
+sigmoid, shared expert) through the kernels and the plain path (streams
+identical), and at capacity factor 8.0 unsharded and through
+``DistributedEngine`` over ``LocalGroup(4, cuda)`` as "ep" and "aurora"
+(streams equal the unsharded one). It also serves reduced phi3.5-MoE
+widened to 8 experts (cf 8.0) through ``DistributedEngine`` over
+``LocalGroup(4, cuda)``: "ep", "aurora" (round robin, and rounds adopted
+from a trace), the overlap, and a ``ChaosHarness`` loss of rank 3 that
+rebuilds the group over 2 ranks; kernel streams equal plain ones and all
+equal the unsharded stream. The
 parity phase holds ``moe_gmm`` at one EP rank's shapes too: (4, 8, 4096)
 and (4, 2, 4096) in bf16.
 
 The parity phase also holds ``moe_gmm`` at replicated group sizes and with
 NaN-poisoned experts (NaN exactly in a live poisoned group's live rows,
 zeros elsewhere in it and in a dead poisoned group). Then a ``{"kernels":
-[...]}`` line and, last, the ``{"ok": true, ...}`` line. Nothing of JAX is
-imported.
+[...]}`` line (``moe_gmm`` at phi3.5's decode bucket and at DeepSeek-V3's,
+``decode_attn``) and, last, the ``{"ok": true, ...}`` line. Nothing of JAX
+is imported.
 """
 
 from __future__ import annotations
@@ -408,6 +431,7 @@ def phase_reference():
             f"chunked streams differ from the serialised ones: {as_serial}")
     _reference_colocated(cfg, model)
     _reference_ep(cfg)
+    _reference_deepseek()
 
 
 def _widen(cfg, n_experts: int):
@@ -494,6 +518,57 @@ def _reference_ep(cfg):
     require(all(unsharded.values()) and eng.group.n == 2, "reference",
             f"EP streams differ from the unsharded one: {unsharded}, "
             f"degraded group of {eng.group.n} ranks")
+
+
+def _reference_deepseek():
+    """Reduced DeepSeek-V3 (fp32; a dense layer D and an MoE layer E; MLA;
+    4 experts top-2, sigmoid router, shared expert) served on the card
+    through the kernels and through the plain path; then, at capacity
+    factor 8.0 (nothing drops), unsharded and through
+    ``DistributedEngine`` over ``LocalGroup(4, cuda)`` as "ep" and as
+    "aurora" (one expert a rank). Gates: kernel stream = plain stream,
+    EP streams = the unsharded one."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import LocalGroup
+    from repro_torch.models import Model
+    from repro_torch.serving import (ContinuousEngine, DistributedEngine,
+                                     EngineConfig)
+    cfg = get_config("deepseek-v3-671b").reduced()
+    wide = _widen(cfg, 4)
+
+    def served(c, make):
+        model = Model(c, device="cuda")
+        eng = make(model, model.init(0))
+        reqs = _stream(c, 6, 5, 20, 4, 12, seed=1)
+        eng.serve(reqs)
+        return [list(r.out_tokens) for r in reqs]
+
+    def one_card(kernels):
+        return lambda model, params: ContinuousEngine(
+            model, params, batch_slots=3, cache_cap=64,
+            config=EngineConfig(kernels=kernels))
+
+    def ranks(impl):
+        return lambda model, params: DistributedEngine(
+            model, params, batch_slots=3, cache_cap=64,
+            group=LocalGroup(4, "cuda"), moe_impl=impl,
+            config=EngineConfig(kernels=True))
+
+    streams = {"cf1.25_kernels": served(cfg, one_card(True)),
+               "cf1.25_plain": served(cfg, one_card(False)),
+               "cf8_kernels": served(wide, one_card(True)),
+               "cf8_ep": served(wide, ranks("ep")),
+               "cf8_aurora": served(wide, ranks("aurora"))}
+    same = streams["cf1.25_kernels"] == streams["cf1.25_plain"]
+    ep = {impl: streams[f"cf8_{impl}"] == streams["cf8_kernels"]
+          for impl in ("ep", "aurora")}
+    emit("reference", arch=cfg.arch_id, layers="D + E", router="sigmoid",
+         shared_expert=True, kernel_equals_plain=same,
+         ep_equals_unsharded_cf8=ep)
+    require(same, "reference", "reduced DeepSeek kernel stream differs from "
+            "the plain stream")
+    require(all(ep.values()), "reference", f"reduced DeepSeek EP streams "
+            f"differ from the unsharded one: {ep}")
 
 
 def _reference_colocated(cfg, model):
@@ -639,12 +714,14 @@ def _serve_run(eng, pools):
     return launches, calls, out
 
 
-def _check_launches(phase, launches, calls):
-    """Exact counts: one ``decode_attn`` per layer of every tenant's
-    decode, one ``moe_gmm`` per layer of every decode and prefill call."""
+def _check_launches(phase, launches, calls, attn_layers=N_LAYERS,
+                    moe_layers=N_LAYERS):
+    """Exact counts: one ``decode_attn`` per GQA layer of every tenant's
+    decode, one ``moe_gmm`` per MoE layer (per rank body under expert
+    parallelism) of every decode and prefill call."""
     decodes = calls["decode_steps"] * calls["tenants"]
-    want = {"decode_attn": decodes * N_LAYERS,
-            "moe_gmm": (decodes + calls["prefill_calls"]) * N_LAYERS}
+    want = {"decode_attn": decodes * attn_layers,
+            "moe_gmm": (decodes + calls["prefill_calls"]) * moe_layers}
     require(launches == want, phase,
             f"launch counts {launches} != expected {want}")
 
@@ -1830,6 +1907,216 @@ def _rank_moe_timing(model, params, epd, c, sizes, gen, flush):
             "group_sizes": sizes, "live_experts": live, "bytes": nbytes,
             "bound_share": b_ms / ms}
 
+DS_LAYERS, DS_MOE_LAYERS = 5, 2  # DeepSeek-V3 cut: 3 dense + 2 MoE layers
+DS_SLICE = 32                    # experts per plain-version comparison
+
+
+def _first_call(module, name: str, run):
+    """(args, kwargs) of the first call of ``module.name`` while ``run()``
+    runs; the kernels' launch counters are left as they were."""
+    from repro_torch.kernels.decode_attn import decode_attn
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    counts = (moe_gmm.launches, decode_attn.launches)
+    fn, seen = getattr(module, name), []
+
+    def keep(*args, **kw):
+        if not seen:
+            seen.append((args, kw))
+        return fn(*args, **kw)
+    setattr(module, name, keep)
+    try:
+        run()
+    finally:
+        setattr(module, name, fn)
+    moe_gmm.launches, decode_attn.launches = counts
+    return seen[0]
+
+
+def _ds_gmm_check(call, flush):
+    """``moe_gmm`` on a captured ``ops.moe_ffn`` call (the served layer's
+    own expert leaves and its real buckets) against its plain version.
+    The plain version upcasts every weight to fp32, so it runs over slices
+    of ``DS_SLICE`` experts (the whole call's fp32 copies would not fit
+    beside the weights); its time is the sum over the slices. Bound: the
+    live experts' weights, x and y once each, and the group sizes."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    (buf, wg, wu, wd), kw = call[0][:4], call[1]
+    gs = kw["group_sizes"]
+    e, c, d = buf.shape
+    f = wg.shape[-1]
+    slices = [slice(e0, e0 + DS_SLICE) for e0 in range(0, e, DS_SLICE)]
+
+    def plain():
+        return [ref.moe_ffn_ref(buf[sl], wg[sl], wu[sl], wd[sl],
+                                group_sizes=gs[sl]) for sl in slices]
+    got = moe_gmm(buf, wg, wu, wd, group_sizes=gs)
+    err = max(max_errs(got[sl], want)[0]
+              for sl, want in zip(slices, plain()))
+    dead_zero = bool((got[torch.arange(c, device="cuda")[None, :]
+                          >= gs[:, None]] == 0).all())
+    del got
+    ms = time_ms(lambda: moe_gmm(buf, wg, wu, wd, group_sizes=gs), flush)
+    plain_ms = time_ms(plain, flush, 5)
+    live = int((gs > 0).sum())
+    nbytes = ((live * 3 * d * f + 2 * buf.numel()) * buf.element_size()
+              + e * 4)
+    b_ms, b_by = bound(nbytes, 2 * 3 * d * f * int(gs.sum()))
+    return {"shape": [e, c, d, f], "max_abs_err": err,
+            "dead_rows_zero": dead_zero, "tol": 2e-2, "ms": ms,
+            "plain_ms": plain_ms, "plain_over": f"{len(slices)} slices of "
+            f"{DS_SLICE} experts", "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "live_experts": live,
+            "rows": int(gs.sum()), "bytes": nbytes, "bound_share": b_ms / ms}
+
+
+def phase_serve_deepseek():
+    """Full-width DeepSeek-V3 cut to 5 layers (the 3 published dense layers
+    and 2 MoE layers; bf16, seeded random weights) serving the serve
+    phase's stream through ``ContinuousEngine(kernels=True)``, then
+    through ``DistributedEngine`` over ``LocalGroup(4, cuda)`` (64 experts
+    a rank, views of the served leaves) as "ep" and as "aurora". Runs
+    last, after the phi3.5 model is freed. Gates: every request complete,
+    finite logits, exact launch counts (``moe_gmm`` 2 per decode step and
+    per prefill, x 4 rank bodies under EP; ``decode_attn`` 0: MLA decodes
+    in plain PyTorch, as the reference does), the peak within 2 GB of the
+    weights (EP: within 1 GB of the unsharded run's), ``moe_gmm`` within
+    2e-2 of its plain version on the served E layer's leaves at a real
+    decode step's buckets and at a 256-token prefill's, the two EP
+    streams identical, and at the decode batch the EP layer within 2e-2
+    of the unsharded kernel layer. Printed: weights GB, init s, step ms,
+    TTFT, tok/s, prefill ms per bucket, ``moe_gmm`` ms beside its bound
+    (unsharded decode and prefill buckets, one EP rank's decode bucket),
+    a profile of a decode step, EP decode steps in alternated rounds and
+    the phase's seconds. Returns the ``kernels`` row of ``moe_gmm`` at the
+    decode bucket."""
+    import torch
+    from repro_torch.configs import cut_depth, get_config
+    from repro_torch.distributed import LocalGroup
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.models import moe as tm
+    from repro_torch.models import transformer as tt
+    from repro_torch.serving import (ContinuousEngine, DistributedEngine,
+                                     EngineConfig)
+    t_phase = time.perf_counter()
+    phase = "serve_deepseek"
+    torch.cuda.reset_peak_memory_stats()
+    cfg = cut_depth(get_config("deepseek-v3-671b"), DS_LAYERS)
+    require(tt.moe_layer_count(cfg) == DS_MOE_LAYERS, phase,
+            f"{cfg.n_layers} layers hold {tt.moe_layer_count(cfg)} MoE "
+            "layers")
+    model = Model(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = _nbytes(params)
+    eng = ContinuousEngine(model, params, batch_slots=SLOTS,
+                           cache_cap=CACHE_CAP,
+                           config=EngineConfig(kernels=True))
+    eng.serve(_stream(cfg, 1, 64, 64, 2, 2, seed=2))          # warm-up
+    torch.cuda.synchronize()
+    reqs = _stream(cfg, 10, 64, 200, 16, 64, seed=0)
+    launches, calls, numbers = _serve_run(eng, [(eng, reqs)])
+    require(all(len(r.out_tokens) == r.max_new_tokens for r in reqs),
+            phase, "a request did not get all its tokens")
+    _check_launches(phase, launches, calls, attn_layers=0,
+                    moe_layers=DS_MOE_LAYERS)
+    finite = _finite_decode(phase, eng, params)
+    peak = numbers["max_memory_allocated_GB"]
+    require(peak <= weight_bytes / 1e9 + 2.0, phase,
+            f"peak {peak} GB, weights {weight_bytes / 1e9} GB + 2 GB allowed")
+    streams = {"unsharded": [list(r.out_tokens) for r in reqs]}
+    total = dict(launches)
+    prefill_ms = _prefill_ms(model.with_kernels(), params, CACHE_CAP)
+    emit(phase, ok=True, arch=cfg.arch_id, n_layers=cfg.n_layers,
+         dense_layers=cfg.moe.first_dense_layers,
+         depth_cut="3 dense + 2 MoE of 61 layers, every published width",
+         dtype=cfg.dtype, weights_GB=weight_bytes / 1e9, init_s=init_s,
+         slots=SLOTS, cache_cap=CACHE_CAP, admission="one-shot", **numbers,
+         prefill_ms=prefill_ms, launches=launches, logits_finite=finite)
+
+    # What the checks below run on: the first E layer's MoE input and
+    # its ``moe_gmm`` buckets in a real decode step over the served cache
+    # (every row frozen), and its buckets for the stream's longest prompt
+    # in its 256-token bucket. The kernels run on the layer's own leaves.
+    decode = _frozen_decode(eng)
+    moe_args = _first_call(tt, "moe_apply", decode)[0]
+    dec_call = _first_call(ops, "moe_ffn", decode)
+    prompt = max((r.prompt for r in reqs), key=len)
+    toks = torch.tensor([[0] * (256 - len(prompt)) + [int(t) for t in prompt]],
+                        device="cuda")
+    kmodel = model.with_kernels()
+    pre_call = _first_call(ops, "moe_ffn", lambda: kmodel.prefill(
+        params, {"tokens": toks}, kmodel.init_cache(1, CACHE_CAP)))
+
+    # Expert parallelism over 4 in-process ranks.
+    fns = {"unsharded": decode}
+    ep_layer = {}
+    for impl in ("ep", "aurora"):
+        run = f"{phase}[{impl}]"
+        ep = DistributedEngine(model, params, batch_slots=SLOTS,
+                               cache_cap=CACHE_CAP,
+                               group=LocalGroup(4, "cuda"), moe_impl=impl,
+                               config=EngineConfig(kernels=True))
+        ep.serve(_stream(cfg, 1, 64, 64, 2, 2, seed=2))       # warm-up
+        torch.cuda.synchronize()
+        reqs = _stream(cfg, 10, 64, 200, 16, 64, seed=0)
+        launches, calls, ep_numbers = _serve_run(ep, [(ep, reqs)])
+        require(all(len(r.out_tokens) == r.max_new_tokens for r in reqs),
+                run, "a request did not get all its tokens")
+        _check_launches(run, launches, calls, attn_layers=0,
+                        moe_layers=DS_MOE_LAYERS * ep.n_ep)
+        ep_finite = _finite_decode(run, ep, params)
+        ep_peak = ep_numbers["max_memory_allocated_GB"]
+        require(ep_peak <= peak + 1.0, run, f"peak {ep_peak} GB, the "
+                f"unsharded run's {peak} GB + 1 GB allowed")
+        streams[impl] = [list(r.out_tokens) for r in reqs]
+        for k in total:
+            total[k] += launches[k]
+        p, x = moe_args[0], moe_args[1]
+        kc = kmodel.kernels
+        y_ep, _ = tm.moe_apply_ep(p, x, cfg.moe, cfg.act, ep.model.pc, kc)
+        y_u, _ = tm.moe_apply_kernel(p, x, cfg.moe, cfg.act, kc)
+        ep_layer[impl] = max_errs(y_ep, y_u)[0]
+        emit(phase, ok=True, run=impl, ranks=ep.n_ep,
+             experts_per_rank=cfg.moe.n_experts // ep.n_ep, **ep_numbers,
+             launches=launches, logits_finite=ep_finite,
+             equals_unsharded_stream=streams[impl] == streams["unsharded"],
+             decode_layer_vs_unsharded_max_abs_err=ep_layer[impl])
+        fns[impl] = _frozen_decode(ep)
+    same = streams["ep"] == streams["aurora"]
+    emit(phase, ep_identical=same, ep_layer_vs_unsharded=ep_layer, tol=2e-2)
+    require(same, phase, "the EP runs' streams differ from each other")
+    require(all(v <= 2e-2 for v in ep_layer.values()), phase,
+            f"EP layer against the unsharded kernel layer: {ep_layer}")
+
+    # moe_gmm against its plain version and its bound: the unsharded
+    # decode and prefill buckets, then one EP rank's decode bucket.
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    gmm = {"decode": _ds_gmm_check(dec_call, flush),
+           "prefill256": _ds_gmm_check(pre_call, flush),
+           "ep_rank_decode": _ds_gmm_check(
+               _first_call(ops, "moe_ffn", fns["aurora"]), flush)}
+    del pre_call, flush
+    for step, row in gmm.items():
+        emit("timing", name="moe_gmm", arch=cfg.arch_id, step=step, **row)
+    ok = all(r["max_abs_err"] <= 2e-2 and r["dead_rows_zero"]
+             for r in gmm.values())
+    require(ok, phase, f"moe_gmm against its plain version: {gmm}")
+    _profile("deepseek_decode_step", decode, 10)
+    _profile("deepseek_ep_aurora_decode_step", fns["aurora"], 10)
+    rounds_ms, medians = _decode_rounds(fns)
+    emit(phase, decode_step_ms_rounds=rounds_ms,
+         decode_step_ms_median=medians,
+         seconds=time.perf_counter() - t_phase)
+    return {"name": "moe_gmm", "route": "cuda", "arch": cfg.arch_id,
+            "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+            "replaces": "src/repro/kernels/moe_gmm.py:112",
+            "launches": total["moe_gmm"], **gmm["decode"]}
+
 
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -1865,11 +2152,22 @@ def main() -> int:
     for r in rows:
         r["launches"] += sum(part[r["name"]] for part in (
             colocated, replicated, chaos, traced, ep))
+        r["arch"] = model.cfg.arch_id
+    # The phi3.5 model, its params and engines go before DeepSeek-V3's
+    # ~53 GB of weights are made.
+    del model, params, monitor, spec
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 1e9
+    require(held < 1.0, "serve_deepseek", f"{held} GB still allocated "
+            "after the phi3.5 phases")
+    rows.append(phase_serve_deepseek())
     print(smi, flush=True)
     print(json.dumps({"kernels": [
-        {k: r[k] for k in ("name", "route", "source", "replaces", "launches",
-                           "max_abs_err", "ms", "plain_ms", "bound_ms",
-                           "bound_by", "library_ms")} for r in rows]}),
+        {k: r[k] for k in ("name", "route", "source", "replaces", "arch",
+                           "shape", "launches", "max_abs_err", "ms",
+                           "plain_ms", "bound_ms", "bound_by",
+                           "library_ms")} for r in rows]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,16 +1,17 @@
 """Architecture registry of the port: ``get_config("<arch-id>")``.
 
-Only the architectures whose code paths the port has are registered; the
-others raise ``KeyError`` until their slice lands.
+Registered: phi3.5-MoE (GQA, softmax router) and DeepSeek-V3 (MLA, leading
+dense layers, sigmoid router with a shared expert). The reference's other
+architectures are not ported yet and raise ``KeyError``.
 """
 
 from __future__ import annotations
 
-from . import phi3_5_moe_42b
-from .base import ModelConfig, MoEConfig
+from . import deepseek_v3_671b, phi3_5_moe_42b
+from .base import MLAConfig, ModelConfig, MoEConfig, cut_depth
 
 REGISTRY: dict[str, ModelConfig] = {
-    m.CONFIG.arch_id: m.CONFIG for m in (phi3_5_moe_42b,)}
+    m.CONFIG.arch_id: m.CONFIG for m in (phi3_5_moe_42b, deepseek_v3_671b)}
 ARCH_IDS: tuple[str, ...] = tuple(REGISTRY)
 
 
@@ -21,4 +22,5 @@ def get_config(arch_id: str) -> ModelConfig:
     return REGISTRY[arch_id]
 
 
-__all__ = ["ModelConfig", "MoEConfig", "REGISTRY", "ARCH_IDS", "get_config"]
+__all__ = ["MLAConfig", "ModelConfig", "MoEConfig", "REGISTRY", "ARCH_IDS",
+           "cut_depth", "get_config"]

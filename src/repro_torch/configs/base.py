@@ -1,8 +1,9 @@
 """Model configuration (the port's own copy of ``repro/configs/base.py``).
 
-Only what the GQA + MoE serving slice reads is kept: ``MoEConfig``,
-``ModelConfig`` with its attention/FFN/MoE fields, and ``reduced()``, the
-smoke-test variant (<= 2 layers, d_model <= 256, <= 4 experts, fp32).
+Only what the GQA, MLA and MoE serving slices read is kept: ``MoEConfig``,
+``MLAConfig``, ``ModelConfig`` with its attention/FFN/MoE fields,
+``reduced()``, the smoke-test variant (<= 2 layers, d_model <= 256, <= 4
+experts, fp32), and ``cut_depth``, the layer cut of a full-width config.
 """
 
 from __future__ import annotations
@@ -26,6 +27,16 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-style Multi-head Latent Attention dims."""
+    q_lora_rank: int
+    kv_lora_rank: int
+    qk_rope_head_dim: int
+    qk_nope_head_dim: int
+    v_head_dim: int
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
     family: Literal["dense", "moe"]
@@ -39,6 +50,7 @@ class ModelConfig:
     n_kv_heads: int = 0
     head_dim: int = 0
     rope_theta: float = 10_000.0
+    mla: MLAConfig | None = None   # MLA ignores n_kv_heads and head_dim
 
     d_ff: int = 0
     act: Literal["swiglu", "geglu"] = "swiglu"
@@ -62,6 +74,11 @@ class ModelConfig:
                 dense_d_ff=(min(self.moe.dense_d_ff, 512)
                             if self.moe.dense_d_ff else 0),
             )
+        mla = None
+        if self.mla is not None:
+            mla = MLAConfig(q_lora_rank=64, kv_lora_rank=64,
+                            qk_rope_head_dim=16, qk_nope_head_dim=32,
+                            v_head_dim=32)
         return dataclasses.replace(
             self,
             arch_id=self.arch_id + "-reduced",
@@ -73,6 +90,18 @@ class ModelConfig:
             head_dim=min(self.head_dim, 64) if self.head_dim else 0,
             d_ff=min(self.d_ff, 512) if self.d_ff else 0,
             vocab=min(self.vocab, 512),
-            moe=moe,
+            moe=moe, mla=mla,
             dtype="float32",
         )
+
+
+def cut_depth(cfg: ModelConfig, n_layers: int) -> ModelConfig:
+    """``cfg`` cut to ``n_layers`` layers, every width kept. The cut takes
+    the MoE layers first: an MoE config's leading dense layers stay while
+    at least one MoE layer is left beside them."""
+    if n_layers < 1:
+        raise ValueError(f"n_layers must be >= 1, got {n_layers}")
+    moe = cfg.moe
+    if moe is not None and moe.first_dense_layers >= n_layers:
+        moe = dataclasses.replace(moe, first_dense_layers=n_layers - 1)
+    return dataclasses.replace(cfg, n_layers=n_layers, moe=moe)

@@ -185,7 +185,7 @@ def _scatter_buckets(xt, valid, router_w, moe, spec=None) -> Buckets:
     physical expert count: routing, capacity and drops stay LOGICAL, then
     kept rank r of expert e lands on replica ``r % r_e`` at position
     ``r // r_e`` (the local paths' shard-of-token rule)."""
-    from ..models.moe import (capacity, dispatch_indices,
+    from ..models.moe import (capacity, combine, dispatch_indices,
                               physical_group_sizes, physical_slots, route)
 
     t_loc, d = xt.shape
@@ -208,12 +208,12 @@ def _scatter_buckets(xt, valid, router_w, moe, spec=None) -> Buckets:
     buf.index_put_((e_f, safe_s), torch.where(k_f[:, None], xt[t_f], 0.0),
                    accumulate=True)
 
-    def combine(back):
+    def combine_back(back):
         picked = torch.where(k_f[:, None], back[e_f, safe_s], 0.0)
-        y = torch.zeros_like(xt)
-        return y.index_add_(0, t_f, picked * gates.reshape(-1)[:, None])
+        return combine(picked, gates)
 
-    return Buckets(buf, physical_group_sizes(spec, kept), combine, aux, idx)
+    return Buckets(buf, physical_group_sizes(spec, kept), combine_back, aux,
+                   idx)
 
 
 def _replicated_counts(idxs, valids, n_experts: int, group: EPGroup):

@@ -7,6 +7,9 @@
       --device cpu --arrival-rate 0.5 --num-requests 6 --batch 3 \
       --cache-cap 32 --kernels
 
+  python -m repro_torch.launch.serve --arch deepseek-v3-671b --reduced \
+      --device cpu --kernels --batch 3 --cache-cap 32 --num-requests 4
+
   python -m repro_torch.launch.serve --arch phi3.5-moe-42b-a6.6b --reduced \
       --device cpu --prefill-chunk 4 --prefill-pool 2 --step-budget 9 \
       --ttft-slo 12
@@ -33,7 +36,10 @@ Exp(``--arrival-rate``) in decode-step units. ``--prefill-chunk``, ``--step-budg
 engine steps) and switch admission to ``EdfAdmission`` over the same chunk
 and budget. ``--kernels`` serves through the hand-written CUDA
 kernels (their plain PyTorch versions on ``--device cpu``). ``--n-layers``
-cuts the depth of a full-width config so its weights fit one card.
+cuts the depth of a full-width config so its weights fit one card; it
+takes MoE layers first, so DeepSeek-V3's 3 leading dense layers stay
+(``configs.cut_depth``). DeepSeek-V3 (MLA) refuses ``--prefill-chunk``,
+as the reference does.
 ``--trace-out BASE`` records telemetry and writes BASE.jsonl (spans and
 events) and BASE.trace.json (Chrome trace-event JSON, for Perfetto) on
 exit; ``--metrics-out PATH`` writes the final metrics snapshot as JSON.
@@ -162,7 +168,7 @@ def _flush_telemetry(telemetry, args) -> None:
 
 def _serve(args, telemetry) -> int:
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import cut_depth, get_config
     from repro_torch.models import Model
     from repro_torch import serving as tserving
     from repro_torch.serving import (ContinuousEngine, EdfAdmission,
@@ -204,7 +210,7 @@ def _serve(args, telemetry) -> int:
         if args.reduced:
             cfg = cfg.reduced()
         if args.n_layers is not None:
-            cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
+            cfg = cut_depth(cfg, args.n_layers)
         if args.experts is not None:
             if cfg.moe is None:
                 raise SystemExit(f"{arch} has no MoE layers to widen")

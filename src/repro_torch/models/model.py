@@ -128,7 +128,7 @@ class Model:
         (``slice_cache_slot``), so the chunk writes the row and its fill
         level in place and no merge copy follows.
 
-        ``first=True`` zeroes the row's K and V and runs a fresh prefill
+        ``first=True`` zeroes the row's cache and runs a fresh prefill
         from position 0: the row ends up as the reference's fresh zero
         batch-1 cache would after the merge, so nothing of the slot's
         previous occupant survives. Later chunks resume at the row's
@@ -138,7 +138,7 @@ class Model:
         there; here it must match the shared cache). Returns (logits,
         cache), plus the chunk's (n_moe_layers, 1, C, E) routing counts
         when ``collect_moe_stats``."""
-        have = cache["segments"][0][0]["k"].shape[2]
+        have = tf.cache_leaves(cache)[0].shape[2]   # (count, B, cap, ...)
         if cap != have:
             raise ValueError(f"cap {cap} != the cache's capacity {have}")
         sub = tf.slice_cache_slot(cache, slot)
@@ -157,11 +157,12 @@ class Model:
 
     def chunkable_len(self, cache_cap: int) -> int | None:
         """Longest (padded) prompt absorbable in chunks: ``None`` when
-        unbounded. The port's layer kinds (G and E) keep global GQA caches,
-        which continue without bound; the reference's bounds for MLA and
-        encoder-decoder (0) and sliding-window rings (the ring size) come
-        with those layer kinds."""
-        return None
+        unbounded, 0 when the arch cannot chunk at all. MLA is 0, as in
+        the reference: its prefill writes the latent cache from offset 0
+        only. Global GQA caches continue without bound. (The reference's
+        other bounds come with layer kinds the port does not have:
+        encoder-decoder 0, sliding-window rings the ring size.)"""
+        return 0 if self.cfg.mla is not None else None
 
     def supports_chunked_prefill(self, total_len: int,
                                  cache_cap: int) -> bool:

@@ -351,10 +351,16 @@ def _experts_ffn(experts, xb, act: str):
     return torch.einsum("ecf,efd->ecd", h, experts["w_down"])
 
 
-def _combine(xt, picked, gates, t_f):
-    y = torch.zeros_like(xt)
-    y.index_add_(0, t_f, picked * gates.reshape(-1)[:, None])
-    return y
+def combine(picked, gates):
+    """Gate-weighted sum of each token's k expert outputs. picked: (T*k, d)
+    in token-major order (the routing's ``reshape(-1)``); gates: (T, k).
+    The reference scatter-adds the k rows into the token (``.at[t].add``),
+    in order; a sum over k is the same function in a fixed order. (A
+    CUDA ``index_add_`` adds a token's rows atomically in no fixed order:
+    with k > 2 the bf16 result, and then a greedy stream, changes from run
+    to run.)"""
+    t, k = gates.shape
+    return (picked * gates.reshape(-1, 1)).reshape(t, k, -1).sum(1)
 
 
 # ---------------------------------------------------------------------------
@@ -411,7 +417,7 @@ def moe_apply_dense(p, x, moe, act: str, return_counts: bool = False,
     buf.index_put_((e_f, safe_s), contrib, accumulate=True)
     out_buf = _experts_ffn(p["experts"], buf, act)
     picked = torch.where(keep_f[:, None], out_buf[e_f, safe_s], 0.0)
-    y = _combine(xt, picked, gates, t_f)
+    y = combine(picked, gates)
     if "shared" in p:
         y = y + ffn_apply(p["shared"], xt, act)
     return _with_counts(y.reshape(shape), aux, idx, shape, moe, return_counts)
@@ -449,7 +455,6 @@ def moe_apply_kernel(p, x, moe, act: str, kernels: KernelConfig | None = None,
     pe_f, ps_f = physical_slots(replication, idx.reshape(-1).long(),
                                 slot.reshape(-1).long())
     n_phys = replication.n_phys if replication is not None else e
-    t_f = torch.arange(t, device=x.device)[:, None].expand(t, k).reshape(-1)
     experts = p["experts"]
 
     cap_pad = align_capacity(cap, kc.block_c)
@@ -472,7 +477,7 @@ def moe_apply_kernel(p, x, moe, act: str, kernels: KernelConfig | None = None,
     safe = torch.where(keep_f, pe_f * cap_pad + ps_f, 0)
     picked = out_buf.reshape(n_phys * cap_pad, d)[safe]
     picked = torch.where(keep_f[:, None], picked, 0.0)
-    y = _combine(xt, picked, gates, t_f)
+    y = combine(picked, gates)
     if "shared" in p:
         y = y + ffn_apply(p["shared"], xt, act)
     return _with_counts(y.reshape(shape), aux, idx, shape, moe, return_counts)

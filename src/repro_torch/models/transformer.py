@@ -1,12 +1,17 @@
-"""Decoder stack for the GQA families (port of ``repro/models/transformer.py``).
+"""Decoder stack of the MoE and dense decoder families (port of
+``repro/models/transformer.py``).
 
 Layers are grouped into segments as in the reference, and params and caches
 are stacked per segment: every leaf of a segment's per-position dict has a
 leading ``count`` axis. The reference's ``lax.scan`` over that axis is a
 Python loop over the stacked layers here.
 
-Layer kinds ported: G (global attention + dense FFN) and E (attention + MoE
-FFN). Caches are updated in place.
+Layer kinds ported: G (global attention + dense FFN), D (attention + dense
+FFN of ``dense_d_ff``: an MoE config's leading dense layers, DeepSeek-V3's
+first three) and E (attention + MoE FFN, with its shared expert when the
+config has one). Attention is GQA, or MLA when ``cfg.mla`` is set: then
+every layer's cache holds the latent ``{"ckv", "k_rope"}`` in place of
+``{"k", "v"}``. Caches are updated in place.
 """
 
 from __future__ import annotations
@@ -29,12 +34,12 @@ class Segment:
 
 
 def segments_of(cfg) -> list[Segment]:
-    """Segment decomposition of the layer stack (E and G families)."""
+    """Segment decomposition of the layer stack (G, D and E kinds)."""
     n = cfg.n_layers
+    if cfg.moe is not None and cfg.moe.first_dense_layers:
+        k = cfg.moe.first_dense_layers
+        return [Segment(("D",), k), Segment(("E",), n - k)]
     if cfg.moe is not None:
-        if cfg.moe.first_dense_layers:
-            raise NotImplementedError("leading dense layers (D kind) are not "
-                                      "ported")
         return [Segment(("E",), n)]
     return [Segment(("G",), n)]
 
@@ -63,18 +68,49 @@ def _normal(shape, scale, dtype, device, gen):
     return torch.randn(shape, dtype=dtype, device=device, generator=gen).mul_(scale)
 
 
+def _ffn(n, d, f, dtype, device, gen):
+    return {"w_gate": _normal((n, d, f), d ** -0.5, dtype, device, gen),
+            "w_up": _normal((n, d, f), d ** -0.5, dtype, device, gen),
+            "w_down": _normal((n, f, d), f ** -0.5, dtype, device, gen)}
+
+
+def _attn(n, cfg, dtype, device, gen) -> dict:
+    """GQA or MLA leaves at the reference's shapes and scales
+    (``init_attn``, ``init_mla``), stacked over ``n`` layers."""
+    d, h = cfg.d_model, cfg.n_heads
+    m = cfg.mla
+    if m is None:
+        hkv, hd = cfg.n_kv_heads, cfg.head_dim
+        return {
+            "wq": _normal((n, d, h, hd), d ** -0.5, dtype, device, gen),
+            "wk": _normal((n, d, hkv, hd), d ** -0.5, dtype, device, gen),
+            "wv": _normal((n, d, hkv, hd), d ** -0.5, dtype, device, gen),
+            "wo": _normal((n, h, hd, d), (h * hd) ** -0.5, dtype, device,
+                          gen)}
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+    r_q, r_kv = m.q_lora_rank, m.kv_lora_rank
+    return {
+        "wq_a": _normal((n, d, r_q), d ** -0.5, dtype, device, gen),
+        "q_norm": torch.zeros((n, r_q), dtype=dtype, device=device),
+        "wq_b": _normal((n, r_q, h, qk_head), r_q ** -0.5, dtype, device,
+                        gen),
+        "wkv_a": _normal((n, d, r_kv + m.qk_rope_head_dim), d ** -0.5,
+                         dtype, device, gen),
+        "kv_norm": torch.zeros((n, r_kv), dtype=dtype, device=device),
+        "wk_b": _normal((n, r_kv, h, m.qk_nope_head_dim), r_kv ** -0.5,
+                        dtype, device, gen),
+        "wv_b": _normal((n, r_kv, h, m.v_head_dim), r_kv ** -0.5, dtype,
+                        device, gen),
+        "wo": _normal((n, h, m.v_head_dim, d), (h * m.v_head_dim) ** -0.5,
+                      dtype, device, gen)}
+
+
 def _init_segment(seg: Segment, cfg, dtype, device, gen) -> tuple:
     n, d = seg.count, cfg.d_model
-    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     out = []
     for kind in seg.kinds:
         p = {"ln1": torch.zeros((n, d), dtype=dtype, device=device),
-             "attn": {
-                 "wq": _normal((n, d, h, hd), d ** -0.5, dtype, device, gen),
-                 "wk": _normal((n, d, hkv, hd), d ** -0.5, dtype, device, gen),
-                 "wv": _normal((n, d, hkv, hd), d ** -0.5, dtype, device, gen),
-                 "wo": _normal((n, h, hd, d), (h * hd) ** -0.5, dtype,
-                               device, gen)},
+             "attn": _attn(n, cfg, dtype, device, gen),
              "ln2": torch.zeros((n, d), dtype=dtype, device=device)}
         if kind == "E":
             m = cfg.moe
@@ -86,12 +122,12 @@ def _init_segment(seg: Segment, cfg, dtype, device, gen) -> tuple:
                     "w_gate": _normal((n, e, d, f), d ** -0.5, dtype, device, gen),
                     "w_up": _normal((n, e, d, f), d ** -0.5, dtype, device, gen),
                     "w_down": _normal((n, e, f, d), f ** -0.5, dtype, device, gen)}}
+            if m.n_shared_experts:
+                p["moe"]["shared"] = _ffn(n, d, m.shared_d_ff or f, dtype,
+                                          device, gen)
         else:
-            f = cfg.d_ff
-            p["ffn"] = {
-                "w_gate": _normal((n, d, f), d ** -0.5, dtype, device, gen),
-                "w_up": _normal((n, d, f), d ** -0.5, dtype, device, gen),
-                "w_down": _normal((n, f, d), f ** -0.5, dtype, device, gen)}
+            f = cfg.moe.dense_d_ff if kind == "D" else cfg.d_ff
+            p["ffn"] = _ffn(n, d, f, dtype, device, gen)
         out.append(p)
     return tuple(out)
 
@@ -118,17 +154,21 @@ def init_params(cfg, seed: int = 0, device="cpu") -> dict:
 
 def init_cache(cfg, batch: int, cap: int, dtype=None, per_slot_len=False,
                device="cpu") -> dict:
-    """``{"len", "segments"}`` with leaves (count, batch, cap, Hkv, D).
-    ``per_slot_len=True`` makes ``len`` a (batch,) vector: each row (decode
-    slot) tracks its own sequence length."""
+    """``{"len", "segments"}`` with leaves (count, batch, cap, ...): GQA
+    ``{"k", "v"}`` (..., Hkv, D), or MLA ``{"ckv", "k_rope"}`` (...,
+    kv_lora) and (..., rope) when ``cfg.mla`` is set. ``per_slot_len=True``
+    makes ``len`` a (batch,) vector: each row (decode slot) tracks its own
+    sequence length."""
     dtype = dtype or torch_dtype(cfg.dtype)
     shape_len = (batch,) if per_slot_len else ()
+    init_layer = (attn_mod.init_mla_cache if cfg.mla is not None
+                  else attn_mod.init_attn_cache)
     segs = []
     for seg in segments_of(cfg):
         segs.append(tuple(
             {name: t.expand((seg.count,) + t.shape).clone()
-             for name, t in attn_mod.init_attn_cache(
-                 cfg, batch, cap, dtype, device).items()}
+             for name, t in init_layer(cfg, batch, cap, dtype,
+                                       device).items()}
             for _ in seg.kinds))
     return {"len": torch.zeros(shape_len, dtype=torch.int32, device=device),
             "segments": tuple(segs)}
@@ -147,7 +187,7 @@ def merge_cache_slot(cache, sub, slot: int):
 
 
 def cache_leaves(cache):
-    """Every K/V tensor of a cache (not ``len``)."""
+    """Every tensor of a cache but ``len`` (K/V or MLA latent alike)."""
     return [t for seg in cache["segments"] for e in seg for t in e.values()]
 
 
@@ -176,9 +216,9 @@ def _apply_layer(kind, p, x, entry, *, cfg, kernels, mode, pos, length,
     ``pc``: the expert-parallel layout of the MoE layers
     (``layers.ParallelContext``, None = one device)."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    y = attn_mod.attn_block(p["attn"], h, cfg=cfg, pos=pos, cache=entry,
-                            length=length, mode=mode, kernels=kernels,
-                            row_mask=row_mask)
+    block = attn_mod.mla_block if cfg.mla is not None else attn_mod.attn_block
+    y = block(p["attn"], h, cfg=cfg, pos=pos, cache=entry, length=length,
+              mode=mode, kernels=kernels, row_mask=row_mask)
     x = x + y
     h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
     counts = None

@@ -167,9 +167,10 @@ def test_bridge_round_trip_is_bit_exact(weights):
 
 def test_port_imports_no_jax_and_nothing_of_repro():
     """Importing the port and every submodule (the planner copy, the
-    monitor, the colocated engines, health, faults, telemetry and the
-    expert-parallel modules included) leaves ``jax`` and the JAX package
-    out of ``sys.modules``; so does importing chip_smoke.py."""
+    monitor, the colocated engines, health, faults, telemetry, the
+    expert-parallel modules and the DeepSeek-V3 config included) leaves
+    ``jax`` and the JAX package out of ``sys.modules``; so does importing
+    chip_smoke.py."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = (
         "import importlib, pkgutil, sys\n"
@@ -185,7 +186,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "       'repro_torch.distributed.group',\n"
         "       'repro_torch.distributed.overlap',\n"
         "       'repro_torch.serving.distributed',\n"
-        "       'repro_torch.sharding.rules', 'repro_torch.launch.mesh'}\n"
+        "       'repro_torch.sharding.rules', 'repro_torch.launch.mesh',\n"
+        "       'repro_torch.configs.deepseek_v3_671b'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
@@ -199,7 +201,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 46       # every submodule walked
+    assert int(out.stdout.split()[-1]) >= 47       # every submodule walked
 
 
 def test_default_device_is_the_card():
