@@ -12,7 +12,9 @@ non-zero:
    per source, all at once.
 3. parity: each kernel against its plain PyTorch version on the card, at the
    serving path's shapes (bf16: decode and prefill buckets, fill levels
-   0, 1 and S), at ragged edges, and at small fp32 shapes.
+   0, 1 and S; ``decode_attn`` also at the dense families' G = 3, G = 1
+   with D = 256, G = 8 and at a 1024-ring at capacity), at ragged edges,
+   and at small fp32 shapes.
 4. reference: reduced phi3.5-MoE (fp32) served on the card through the
    kernels and through the plain path, with one-shot admission and with
    three chunked ones (chunks of 8; chunks of 8 with a budget of 12 and a
@@ -95,7 +97,30 @@ non-zero:
    and (d) decode steps, one rank's ``moe_gmm`` against its bound, the
    round copies' bytes and ms, the drops of a padded 256-token prefill.
    The exchange is in-process: no network cost is measured.
-14. serve_deepseek, run last, after the phi3.5 model, params and engines
+14. serve_dense, beside the still loaded phi3.5-MoE, one dense model at
+   a time (each freed before the next is made), full width in bf16:
+   phi4-mini (32 layers, G = 3) on the serve stream one-shot and with
+   chunks of 64, through ``ServingEngine`` (8 prompts of 128 tokens, 32
+   new) and in ``ColocatedContinuousEngine`` beside phi3.5-MoE (both on
+   the serve stream); gemma-7b (28 layers, G = 1, D = 256) one-shot;
+   gemma3-27b cut to 12 layers (2 x LLLLLG, cache 4096, rings of 1024,
+   prompts padded to multiples of 64) on the first 8 requests of the
+   serve stream and a 1000-token and a 2100-token prompt; qwen3-32b cut
+   to 8 layers (q/k-norm, G = 8) one-shot. Gates: every request
+   complete, exact launch counts (``decode_attn`` once per layer and
+   decode step, ``moe_gmm`` 0; colocated: 8 + 32 ``decode_attn`` a step,
+   8 ``moe_gmm`` a step and a phi3.5 prefill), finite logits, the peak
+   beyond what was held before within 2 GB of the model's weights and
+   caches (the peak over the weights alone printed beside it), gemma3's
+   flash branch taken and its rings wrapped in prefill and in decode
+   (seen at the calls: ``_attn_tally``), each colocated tenant's stream
+   its solo stream, and ``decode_attn`` within 2e-2 of its plain version
+   on each arch's served layers (gemma3: a wrapped ring and the 4096
+   global cache), each then timed beside SDPA and its bound. Printed: the
+   serve numbers, the static batch's tok/s, a profile of phi4-mini's
+   decode step, and whether the chunked and static streams equal the
+   one-shot ones (bf16 rounding may part them: not gated).
+15. serve_deepseek, run last, after the phi3.5 model, params and engines
    are freed (under 1 GB must stay allocated): full-width DeepSeek-V3 cut
    to 5 layers (the 3 published dense layers and 2 MoE layers; MLA, 256
    experts top-8, sigmoid router, shared expert; bf16, ~53.2 GB) serving
@@ -113,7 +138,12 @@ non-zero:
    tok/s, ``moe_gmm`` ms beside its bound, a decode-step profile, EP
    decode steps in alternated rounds, the phase's seconds.
 
-Phase 4 also serves reduced DeepSeek-V3 (fp32, D + E, 4 experts top-2,
+Phase 4 also serves the four reduced dense archs (phi4-mini, gemma-7b,
+qwen3-32b, gemma3-27b with its LG layers and a ring of 16; fp32) through
+the kernels and the plain path (streams identical; gemma3 also with
+chunks of 4, equal to its one-shot stream), and each through the static
+``ServingEngine``, equal to ``ContinuousEngine`` when every request
+arrives at t = 0. It serves reduced DeepSeek-V3 (fp32, D + E, 4 experts top-2,
 sigmoid, shared expert) through the kernels and the plain path (streams
 identical), and at capacity factor 8.0 unsharded and through
 ``DistributedEngine`` over ``LocalGroup(4, cuda)`` as "ep" and "aurora"
@@ -130,12 +160,15 @@ The parity phase also holds ``moe_gmm`` at replicated group sizes and with
 NaN-poisoned experts (NaN exactly in a live poisoned group's live rows,
 zeros elsewhere in it and in a dead poisoned group). Then a ``{"kernels":
 [...]}`` line (``moe_gmm`` at phi3.5's decode bucket and at DeepSeek-V3's,
-``decode_attn``) and, last, the ``{"ok": true, ...}`` line. Nothing of JAX
+``decode_attn`` at phi3.5's shape and at each dense arch's) and, last,
+the ``{"ok": true, ...}`` line. Nothing of JAX
 is imported.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -318,6 +351,20 @@ def phase_parity():
     attn_cases = [
         (8, 32, 8, 128, CACHE_CAP, torch.bfloat16,
          [0, 1, CACHE_CAP, 77, 176, 316, 203, 299]),
+        # The dense families' served shapes: G = 3 (phi4-mini), G = 1 at
+        # D = 256 (gemma-7b: 32 lanes a position), G = 8 (qwen3), and
+        # gemma3's 1024-ring (rows at its capacity: wrapped) beside its
+        # 4096-position global cache.
+        (8, 24, 8, 128, CACHE_CAP, torch.bfloat16,
+         [1, CACHE_CAP, 200, 77, 0, 316, 511, 9]),
+        (8, 16, 16, 256, CACHE_CAP, torch.bfloat16,
+         [CACHE_CAP, 1, 130, 77, 400, 0, 255, 256]),
+        (8, 64, 8, 128, CACHE_CAP, torch.bfloat16,
+         [77, CACHE_CAP, 1, 300, 0, 128, 199, 450]),
+        (8, 32, 16, 128, 1024, torch.bfloat16,
+         [1024, 1024, 1, 300, 1023, 0, 700, 1024]),
+        (8, 32, 16, 128, 4096, torch.bfloat16,
+         [2143, 1087, 1, 300, 4096, 0, 700, 3001]),
         (2, 16, 2, 128, 4096, torch.bfloat16, [4093, 1500]),
         (2, 32, 8, 128, 16384, torch.bfloat16, [16384, 9001]),
         (3, 8, 2, 64, 200, torch.float32, [0, 13, 200]),
@@ -432,6 +479,7 @@ def phase_reference():
     _reference_colocated(cfg, model)
     _reference_ep(cfg)
     _reference_deepseek()
+    _reference_dense()
 
 
 def _widen(cfg, n_experts: int):
@@ -569,6 +617,64 @@ def _reference_deepseek():
             "the plain stream")
     require(all(ep.values()), "reference", f"reduced DeepSeek EP streams "
             f"differ from the unsharded one: {ep}")
+
+
+DENSE_ARCHS = ("phi4-mini-3.8b", "gemma-7b", "qwen3-32b", "gemma3-27b")
+
+
+def _reference_dense():
+    """The four reduced dense archs (fp32; gemma3 with its LG layers and a
+    ring of 16) on the card. A stream of 6 requests (prompts of 5-16
+    tokens, up to 24 new tokens, so gemma3's rings wrap) through
+    ``ContinuousEngine`` on the kernels and on the plain path, one-shot
+    and, for gemma3, with chunks of 4 (the ring bounds the chunked
+    prompt); then 4 requests at t = 0 through the static
+    ``ServingEngine`` and through ``ContinuousEngine`` with the same pad
+    length. Gates: kernel streams equal plain ones, gemma3's chunked
+    stream its one-shot stream, the static streams the continuous ones."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import (ContinuousEngine, EngineConfig,
+                                     Request, ServingEngine)
+    out = {}
+    for arch in DENSE_ARCHS:
+        cfg = get_config(arch).reduced()
+        model = Model(cfg, device="cuda")
+        params = model.init(0)
+        runs = {"one_shot": {}}
+        if cfg.layer_pattern:
+            runs["chunk4"] = {"prefill_chunk": 4}
+        streams = {}
+        for name, kw in runs.items():
+            for kernels in (True, False):
+                eng = ContinuousEngine(
+                    model, params, batch_slots=3, cache_cap=64,
+                    config=EngineConfig(kernels=kernels, **kw))
+                reqs = _stream(cfg, 6, 5, 16, 4, 24, seed=1)
+                eng.serve(reqs)
+                streams[name, kernels] = [list(r.out_tokens) for r in reqs]
+
+        def t0():
+            return [Request(prompt=[i + 1, i + 2, i + 3, i + 4],
+                            max_new_tokens=n)
+                    for i, n in enumerate((20, 3, 12, 6))]
+        static = ServingEngine(model, params, batch_slots=4, cache_cap=64,
+                               kernels=True).serve(t0())
+        cont = ContinuousEngine(
+            model, params, batch_slots=4, cache_cap=64,
+            config=EngineConfig(kernels=True, prefill_len=4)).serve(t0())
+        out[arch] = {
+            "kernel_equals_plain": all(streams[n, True] == streams[n, False]
+                                       for n in runs),
+            "chunked_equals_one_shot": (streams["chunk4", True]
+                                        == streams["one_shot", True]
+                                        if "chunk4" in runs else None),
+            "static_equals_continuous_t0": (
+                [r.out_tokens for r in static] == [r.out_tokens
+                                                   for r in cont])}
+    emit("reference", archs=list(DENSE_ARCHS), dense=out)
+    bad = {a: v for a, v in out.items() if False in v.values()}
+    require(not bad, "reference", f"reduced dense streams differ: {bad}")
 
 
 def _reference_colocated(cfg, model):
@@ -1110,14 +1216,39 @@ def _moe_timing(model, params, n_tokens, gen, flush, spec=None):
             "bound_share": b_ms / ms}
 
 
+def _attn_timing(q, k, v, valid, flush):
+    """``decode_attn`` on q (B, H, D) over k/v (B, S, Hkv, D) at fill
+    levels ``valid`` (B,): its ms beside the plain version's and SDPA's
+    (GQA, a boolean fill-level mask), and its bound (the live K and V, q
+    and the output once each, the fill levels)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attn import decode_attn
+    b, h, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    ms = time_ms(lambda: decode_attn(q, k, v, valid), flush)
+    plain = time_ms(lambda: ref.decode_attn_ref(q, k, v, valid), flush)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)             # (B, Hkv, S, D)
+    mask = (torch.arange(s, device="cuda")[None, :]
+            < valid[:, None])[:, None, None, :]
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True), flush)
+    n_valid = int(valid.sum())
+    nbytes = ((2 * n_valid * hkv * d + 2 * q.numel()) * q.element_size()
+              + b * 4)
+    b_ms, b_by = bound(nbytes, 4 * h * d * n_valid)
+    return {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib, "shape": [b, h, hkv, d, s],
+            "valid_len": valid.tolist(), "bytes": nbytes,
+            "bound_share": b_ms / ms}
+
+
 def phase_timing(model, params, eng, launches, errs):
     """Each kernel at the serve phase's decode shapes, on layer 0's tensors;
     then ``moe_gmm`` at the batch-1 prefill buckets, on timing lines of
     their own (the ``kernels`` line keeps the decode shapes)."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attn import decode_attn
     cfg = model.cfg
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -1137,27 +1268,12 @@ def phase_timing(model, params, eng, launches, errs):
     q = torch.randn((SLOTS, cfg.n_heads, cfg.head_dim), generator=gen,
                     device="cuda", dtype=k.dtype)
     valid = torch.clamp(eng.cache["len"] + 1, max=CACHE_CAP).to(torch.int32)
-    ms = time_ms(lambda: decode_attn(q, k, v, valid), flush)
-    plain = time_ms(lambda: ref.decode_attn_ref(q, k, v, valid), flush)
-    kt, vt = k.transpose(1, 2), v.transpose(1, 2)             # (B, Hkv, S, D)
-    mask = (torch.arange(CACHE_CAP, device="cuda")[None, :]
-            < valid[:, None])[:, None, None, :]
-    lib = time_ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True), flush)
-    n_valid = int(valid.sum())
-    nbytes = ((2 * n_valid * cfg.n_kv_heads * cfg.head_dim + 2 * q.numel())
-              * q.element_size() + SLOTS * 4)
-    b_ms, b_by = bound(nbytes, 4 * cfg.n_heads * cfg.head_dim * n_valid)
     rows.append({"name": "decode_attn", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/decode_attn.cu",
                  "replaces": "src/repro/kernels/decode_attn.py:91",
                  "launches": launches["decode_attn"],
-                 "max_abs_err": errs["decode_attn"], "ms": ms,
-                 "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-                 "library_ms": lib,
-                 "shape": [SLOTS, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                           CACHE_CAP],
-                 "valid_len": valid.tolist(), "bytes": nbytes})
+                 "max_abs_err": errs["decode_attn"],
+                 **_attn_timing(q, k, v, valid, flush)})
     for r in rows:
         emit("timing", **r)
     for n_tokens in (64, 128, 256):
@@ -1907,12 +2023,414 @@ def _rank_moe_timing(model, params, epd, c, sizes, gen, flush):
             "group_sizes": sizes, "live_experts": live, "bytes": nbytes,
             "bound_share": b_ms / ms}
 
+# The dense families at full width: (arch, depth cut or None, cache cap).
+DENSE_SERVED = (("phi4-mini-3.8b", None, CACHE_CAP),
+                ("gemma-7b", None, CACHE_CAP), ("gemma3-27b", 12, 4096),
+                ("qwen3-32b", 8, CACHE_CAP))
+
+
+@contextlib.contextmanager
+def _attn_tally():
+    """What the GQA layers did while the block runs, seen at their call
+    sites: ``t["shapes"][(H, S)]``, ``decode_attn``'s launches by the
+    shape they ran at (each call of ``attention.decode_attn_auto`` adds
+    the kernel counter's rise during that call under its q's heads and
+    its cache's positions); ``t["ring_prefill"]``, layer calls of a fresh
+    prefill that wrote a ring smaller than its prompt (``pos % cap``);
+    ``t["ring_decode"]``, live rows whose decode write wrapped a full ring
+    back to slot 0 (``length == cap``), summed over the ring layers' calls
+    on the card and read once when the block ends."""
+    import torch
+    from repro_torch.kernels.decode_attn import decode_attn
+    from repro_torch.models import attention as tattn
+    t = {"shapes": collections.Counter(), "ring_prefill": 0, "ring_decode": 0}
+    wraps = []
+    auto, block = tattn.decode_attn_auto, tattn.attn_block
+
+    def counted_auto(q, k, *args, **kw):
+        n = decode_attn.launches
+        out = auto(q, k, *args, **kw)
+        t["shapes"][(q.shape[1], k.shape[1])] += decode_attn.launches - n
+        return out
+
+    def observed_block(p, x, **kw):
+        cap, window = kw["cache"]["k"].shape[1], kw.get("window")
+        mode = kw.get("mode", "prefill")
+        if mode == "prefill" and kw.get("length") is None and cap < x.shape[1]:
+            t["ring_prefill"] += 1
+        elif mode == "decode" and window is not None and cap <= window:
+            hit = kw["length"] == cap
+            if kw.get("row_mask") is not None:
+                hit = hit & kw["row_mask"]
+            wraps.append(hit.sum())
+        return block(p, x, **kw)
+    tattn.decode_attn_auto, tattn.attn_block = counted_auto, observed_block
+    try:
+        yield t
+    finally:
+        tattn.decode_attn_auto, tattn.attn_block = auto, block
+    t["ring_decode"] = int(torch.stack(wraps).sum()) if wraps else 0
+
+
+def _attn_shapes(cfg, cap: int, steps: int):
+    """``decode_attn``'s launches by (H, S) in ``steps`` decode steps of
+    ``cfg``'s stack over a cache of ``cap``: one per layer, at the layer
+    cache's capacity (``transformer.entry_capacity``)."""
+    from repro_torch.models import transformer as tt
+    want = collections.Counter()
+    for kind in cfg.layer_kinds():
+        want[(cfg.n_heads, tt.entry_capacity(kind, cfg, cap))] += steps
+    return want
+
+
+def _peak_gate(run, peak_gb, params, *held):
+    """The dense runs' memory gate: ``peak_gb`` (the peak beyond what was
+    allocated before the model was made) within 2 GB of ``params``' weights
+    and the caches of ``held`` ((model, cap) pairs). Returns both sides,
+    and the peak over the weights alone."""
+    weights = _nbytes(params) / 1e9
+    held_gb = weights + sum(_cache_bytes(m, SLOTS, cap)
+                            for m, cap in held) / 1e9
+    require(peak_gb <= held_gb + 2.0, run, f"peak {peak_gb} GB beyond the "
+            f"other models', weights + caches {held_gb} GB + 2 GB allowed")
+    return {"weights_and_cache_GB": held_gb,
+            "peak_beyond_other_models_GB": peak_gb,
+            "peak_over_weights_GB": peak_gb - weights}
+
+
+def _cache_bytes(model, batch: int, cap: int) -> int:
+    """Bytes of ``model``'s per-slot cache (rings included), from its
+    shapes (made on the meta device: nothing is allocated)."""
+    from repro_torch.models import transformer as tt
+    cache = tt.init_cache(model.cfg, batch, cap, device="meta")
+    return sum(t.numel() * t.element_size() for t in tt.cache_leaves(cache))
+
+
+def _dense_stream(moe_cfg, long: bool = False):
+    """The serve phase's stream (phi3.5's vocabulary, which every dense
+    model's vocabulary holds). With ``long``, its first 8 requests and two
+    more after them: 1000 prompt tokens and 64 new ones (its decode passes
+    position 1024, so gemma3's rings wrap while it decodes) and 2100
+    prompt tokens (its prefill takes the flash branch and wraps the rings)
+    and 32 new ones."""
+    import numpy as np
+    from repro_torch.serving import Request
+    reqs = _stream(moe_cfg, 8 if long else 10, 64, 200, 16, 64, seed=0)
+    if long:
+        rng = np.random.default_rng(4)
+        t = reqs[-1].arrival
+        for i, (n, new) in enumerate(((1000, 64), (2100, 32))):
+            reqs.append(Request(prompt=[int(x) for x in rng.integers(
+                1, moe_cfg.vocab, n)], max_new_tokens=new, arrival=t + 1 + i))
+    return reqs
+
+
+def _attn_check(call, flush):
+    """``decode_attn`` on a captured ``decode_attn_auto`` call (a served
+    layer's q, cache and fill levels) against its plain version (2e-2,
+    bf16), then timed (``_attn_timing``)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attn import decode_attn
+    q, k, v, valid = call[0]
+    valid = valid.to(torch.int32).reshape(-1)
+    err = max_errs(decode_attn(q, k, v, valid),
+                   ref.decode_attn_ref(q, k, v, valid))[0]
+    return {"max_abs_err": err, "tol": 2e-2, **_attn_timing(q, k, v, valid,
+                                                            flush)}
+
+
+def _dense_run(phase, model, params, cap, config, reqs, other_gb):
+    """One stream through ``ContinuousEngine`` (after a one-request
+    warm-up). Gates: every request complete, exact launch counts
+    (``decode_attn`` once per layer and decode step, ``moe_gmm`` never),
+    ``decode_attn``'s launches by shape as each layer's cache gives them),
+    finite logits, the peak beyond what was allocated before the model
+    (``other_gb``) within 2 GB of its weights and cache (``_peak_gate``).
+    Returns the engine, the launches, the numbers and the run's
+    ``_attn_tally``."""
+    import torch
+    from repro_torch.serving import ContinuousEngine
+    eng = ContinuousEngine(model, params, batch_slots=SLOTS, cache_cap=cap,
+                           config=config)
+    eng.serve(_stream(model.cfg, 1, 64, 64, 2, 2, seed=2))    # warm-up
+    torch.cuda.synchronize()
+    with _attn_tally() as tally:
+        launches, calls, numbers = _serve_run(eng, [(eng, reqs)])
+    require(all(len(r.out_tokens) == r.max_new_tokens for r in reqs),
+            phase, "a request did not get all its tokens")
+    require(eng.num_pending == 0, phase,
+            f"{eng.num_pending} prefills left in flight")
+    _check_launches(phase, launches, calls, attn_layers=model.cfg.n_layers,
+                    moe_layers=0)
+    want = _attn_shapes(model.cfg, cap, calls["decode_steps"])
+    require(tally["shapes"] == want, phase, f"decode_attn launches by "
+            f"(H, S) {dict(tally['shapes'])} != expected {dict(want)}")
+    finite = _finite_decode(phase, eng, params)
+    gate = _peak_gate(phase, numbers["max_memory_allocated_GB"] - other_gb,
+                      params, (model, cap))
+    return eng, launches, {**numbers, "logits_finite": finite, **gate}, tally
+
+
+def phase_serve_dense(moe_model, moe_params, moe_streams):
+    """The dense families at full width, one model at a time (each freed
+    before the next is made), beside the served phi3.5-MoE (still held):
+    phi4-mini (32 layers; G = 3) on the serve stream one-shot and with
+    chunks of 64, then through ``ServingEngine`` (8 prompts of 128 tokens,
+    32 new) and, beside phi3.5-MoE, in ``ColocatedContinuousEngine``;
+    gemma-7b (28 layers; G = 1, D = 256) one-shot; gemma3-27b cut to 12
+    layers (2 x LLLLLG; cache 4096, rings of 1024; prompts padded to
+    multiples of 64) on the long stream (``_dense_stream``); qwen3-32b cut
+    to 8 layers (q/k-norm; G = 8) one-shot. Gates: every request
+    complete, exact launch counts, finite logits, peak memory, the flash
+    branch taken and rings wrapped (gemma3), each colocated tenant's
+    stream its solo stream, and ``decode_attn`` within 2e-2 of its plain
+    version on each arch's served layers (gemma3: a wrapped ring and a
+    global cache). Returns the ``kernels`` rows of ``decode_attn`` and the
+    phi3.5 tenant's launches of each kernel in the colocated run."""
+    import torch
+    from repro_torch.configs import cut_depth, get_config
+    from repro_torch.models import Model
+    from repro_torch.models import attention as tattn
+    from repro_torch.models import layers as tl
+    from repro_torch.models import transformer as tt
+    from repro_torch.serving import EngineConfig
+    t_phase = time.perf_counter()
+    moe_cfg = moe_model.cfg
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    rows, tol = [], 2e-2
+    for arch, n_layers, cap in DENSE_SERVED:
+        phase = f"serve_dense[{arch}]"
+        cfg = get_config(arch)
+        if n_layers is not None:
+            cfg = cut_depth(cfg, n_layers)
+        other_gb = torch.cuda.memory_allocated() / 1e9
+        model = Model(cfg, device="cuda")
+        t0 = time.perf_counter()
+        params = model.init(0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        head = {"arch": arch, "n_layers": cfg.n_layers,
+                "depth_cut": ("full depth" if n_layers is None else
+                              f"{n_layers} of {get_config(arch).n_layers} "
+                              "layers, every published width"),
+                "dtype": cfg.dtype, "weights_GB": _nbytes(params) / 1e9,
+                "init_s": init_s, "slots": SLOTS, "cache_cap": cap}
+        long = cfg.layer_pattern is not None
+        config = EngineConfig(kernels=True,
+                              bucket_policy="step:64" if long else "pow2")
+        ring = tt.entry_capacity("L", cfg, cap) if long else None
+        n_flash = [0]
+        flash = tl.flash_attention
+
+        def counted(*a, **kw):
+            n_flash[0] += 1
+            return flash(*a, **kw)
+        tl.flash_attention = counted
+        try:
+            reqs = _dense_stream(moe_cfg, long)
+            eng, launches, numbers, tally = _dense_run(
+                phase, model, params, cap, config, reqs, other_gb)
+        finally:
+            tl.flash_attention = flash
+        shapes = collections.Counter(tally["shapes"])
+        extra = {}
+        if long:
+            extra = {"flash_calls": n_flash[0],
+                     "ring_prefill_layer_calls": tally["ring_prefill"],
+                     "ring_decode_wraps": tally["ring_decode"],
+                     "longest_prompt": max(len(r.prompt) for r in reqs)}
+            require(n_flash[0] > 0 and tally["ring_prefill"]
+                    and tally["ring_decode"], phase,
+                    f"flash or ring wrap not reached: {extra}")
+        emit("serve_dense", ok=True, run="one_shot", **head,
+             admission="one-shot", **numbers, launches=launches, **extra)
+        streams = [list(r.out_tokens) for r in reqs]
+
+        # decode_attn on the served layers: every call of a frozen decode
+        # over the served cache (each row at its final fill level).
+        attn_calls = _calls(tattn, "decode_attn_auto", _frozen_decode(eng))
+        require(len(attn_calls) == cfg.n_layers, phase,
+                f"{len(attn_calls)} decode_attn calls in a decode step")
+        kinds = cfg.layer_kinds()
+        picks = {"": 0} if not long else {"ring": kinds.index("L"),
+                                          "global": kinds.index("G")}
+        checks = {tag: _attn_check(attn_calls[i], flush)
+                  for tag, i in picks.items()}
+        del attn_calls
+
+        if arch == "phi4-mini-3.8b":
+            _profile("phi4_mini_decode_step", _frozen_decode(eng), 10)
+            del eng
+            # Chunks of 64.
+            creqs = _dense_stream(moe_cfg)
+            ceng, claunches, cnumbers, ctally = _dense_run(
+                phase + "[chunk64]", model, params, cap,
+                EngineConfig(kernels=True, prefill_chunk=64), creqs,
+                other_gb)
+            del ceng
+            emit("serve_dense", ok=True, run="chunk64", **head,
+                 prefill_chunk=64, **cnumbers, launches=claunches,
+                 equals_one_shot=[list(r.out_tokens) for r in creqs]
+                 == streams)
+            co_shapes, moe_part = _colocated_dense(
+                phase, moe_model, moe_params, moe_streams, model, params,
+                streams, other_gb)
+            shapes += ctally["shapes"] + co_shapes + _static_dense(
+                phase, model, params, head, other_gb)
+        else:
+            del eng
+        if long:
+            wrapped = sum(int(x) == ring for x in checks["ring"]["valid_len"])
+            require(checks["ring"]["shape"][-1] == ring and wrapped, phase,
+                    f"the ring call {checks['ring']['shape']} has no "
+                    "wrapped row")
+            emit("serve_dense", arch=arch, ring_rows_wrapped=wrapped)
+        # Launches of each row: counted by shape in the served runs.
+        own = {(h, s): n for (h, s), n in shapes.items() if h == cfg.n_heads}
+        n_of = {"": sum(own.values()), "ring": own.get((cfg.n_heads, ring), 0),
+                "global": own.get((cfg.n_heads, cap), 0)}
+        for tag, row in checks.items():
+            emit("timing", name="decode_attn", arch=arch, layers=tag or "all",
+                 **row)
+            require(row["max_abs_err"] <= tol, phase, f"decode_attn {tag} "
+                    f"{row['shape']}: max abs err {row['max_abs_err']}")
+            rows.append({"name": "decode_attn", "route": "cuda",
+                         "source": "src/repro_torch/kernels/csrc/"
+                                   "decode_attn.cu",
+                         "replaces": "src/repro/kernels/decode_attn.py:91",
+                         "arch": arch + (f" ({tag}, {row['shape'][-1]})"
+                                         if tag else ""),
+                         "launches": n_of[tag],
+                         **row})
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit("serve_dense", seconds=time.perf_counter() - t_phase)
+    return rows, moe_part
+
+
+def _static_dense(phase, model, params, head, other_gb):
+    """8 prompts of 128 tokens, 32 new each, through ``ServingEngine``
+    (kernel path), after a warm-up batch; then the same requests, all at
+    t = 0, through ``ContinuousEngine`` with the same pad length (the
+    streams are printed side by side; bf16 batched and batch-1 prefills
+    may round apart, so they are not gated). Gates: complete, exact
+    launch counts (``decode_attn`` once per layer and decode step, by
+    shape), the peak within 2 GB of the weights and cache. Returns its
+    ``decode_attn`` launches by (H, S) (``_attn_tally``)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.decode_attn import decode_attn
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    from repro_torch.serving import (ContinuousEngine, EngineConfig, Request,
+                                     ServingEngine)
+    run = phase + "[static]"
+    rng = np.random.default_rng(5)
+    prompts = [[int(x) for x in rng.integers(1, model.cfg.vocab, 128)]
+               for _ in range(SLOTS)]
+
+    def reqs():
+        return [Request(prompt=list(p), max_new_tokens=32) for p in prompts]
+    eng = ServingEngine(model, params, batch_slots=SLOTS, cache_cap=CACHE_CAP,
+                        kernels=True)
+    eng.serve([Request(prompt=p[:16], max_new_tokens=2) for p in prompts])
+    torch.cuda.synchronize()
+    dec0 = eng.decode_steps
+    torch.cuda.reset_peak_memory_stats()
+    moe_gmm.launches = decode_attn.launches = 0
+    t0 = time.perf_counter()
+    with _attn_tally() as tally:
+        out = eng.serve(reqs())
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"moe_gmm": moe_gmm.launches,
+                "decode_attn": decode_attn.launches}
+    steps = eng.decode_steps - dec0
+    want = {"moe_gmm": 0, "decode_attn": steps * model.cfg.n_layers}
+    require(launches == want, run, f"launch counts {launches} != {want}")
+    want = _attn_shapes(model.cfg, CACHE_CAP, steps)
+    require(tally["shapes"] == want, run, f"decode_attn launches by (H, S) "
+            f"{dict(tally['shapes'])} != expected {dict(want)}")
+    require(all(len(r.out_tokens) == 32 for r in out), run,
+            "a request did not get all its tokens")
+    gate = _peak_gate(run, torch.cuda.max_memory_allocated() / 1e9 - other_gb,
+                      params, (model, CACHE_CAP))
+    cont = ContinuousEngine(
+        model, params, batch_slots=SLOTS, cache_cap=CACHE_CAP,
+        config=EngineConfig(kernels=True, prefill_len=128)).serve(reqs())
+    tokens = sum(len(r.out_tokens) for r in out)
+    emit("serve_dense", ok=True, run="static", **head, batch=SLOTS,
+         prompt_len=128, max_new_tokens=32, decode_steps=steps,
+         wall_s=wall, tok_per_s=tokens / wall, launches=launches, **gate,
+         equals_continuous_t0=[r.out_tokens for r in out]
+         == [r.out_tokens for r in cont])
+    return tally["shapes"]
+
+
+def _colocated_dense(phase, moe_model, moe_params, moe_streams, model,
+                     params, solo, other_gb):
+    """The served phi3.5-MoE (tenant A) beside phi4-mini (tenant B) in
+    ``ColocatedContinuousEngine`` (kernel path; no pairing: B has no
+    experts), both on the serve stream. Gates: each tenant's stream
+    equals its solo stream, every request complete, exact launch counts
+    (``decode_attn`` 8 + 32 per lockstep step, ``moe_gmm`` 8 per step and
+    per A prefill; ``decode_attn`` by shape, so by tenant), finite logits,
+    the peak within 2 GB of phi4-mini's weights and both caches. Returns
+    the run's ``decode_attn`` launches by (H, S) and the MoE tenant's
+    launches of each kernel (its ``decode_attn`` ones counted at its
+    heads)."""
+    from repro_torch.serving import ColocatedContinuousEngine, EngineConfig
+    run = phase + "[colocated]"
+    moe_cfg = moe_model.cfg
+    eng = ColocatedContinuousEngine(
+        moe_model, model, moe_params, params, batch_slots=SLOTS,
+        cache_cap=CACHE_CAP, config=EngineConfig(kernels=True))
+    eng.serve(_stream(moe_cfg, 1, 64, 64, 2, 2, seed=2),
+              _stream(moe_cfg, 1, 64, 64, 2, 2, seed=2))      # warm-up
+    reqs_a = _stream(moe_cfg, 10, 64, 200, 16, 64, seed=0)
+    reqs_b = _dense_stream(moe_cfg)
+    pre_a = eng.pool_a.prefills
+    with _attn_tally() as tally:
+        launches, calls, numbers = _serve_run(
+            eng, [(eng.pool_a, reqs_a), (eng.pool_b, reqs_b)])
+    steps = calls["decode_steps"]
+    want = {"decode_attn": steps * (moe_cfg.n_layers + model.cfg.n_layers),
+            "moe_gmm": (steps + eng.pool_a.prefills - pre_a)
+            * moe_cfg.n_layers}
+    require(launches == want, run, f"launch counts {launches} != {want}")
+    shapes = tally["shapes"]
+    want = (_attn_shapes(moe_cfg, CACHE_CAP, steps)
+            + _attn_shapes(model.cfg, CACHE_CAP, steps))
+    require(shapes == want and moe_cfg.n_heads != model.cfg.n_heads, run,
+            f"decode_attn launches by (H, S) {dict(shapes)} != expected "
+            f"{dict(want)}")
+    require(all(len(r.out_tokens) == r.max_new_tokens
+                for r in reqs_a + reqs_b), run,
+            "a request did not get all its tokens")
+    for pool in (eng.pool_a, eng.pool_b):
+        _finite_decode(run, pool, pool.params)
+    same = {"moe_tenant": [list(r.out_tokens) for r in reqs_a] == moe_streams,
+            "dense_tenant": [list(r.out_tokens) for r in reqs_b] == solo}
+    gate = _peak_gate(run, numbers["max_memory_allocated_GB"] - other_gb,
+                      params, (model, CACHE_CAP), (moe_model, CACHE_CAP))
+    emit("serve_dense", ok=True, run="colocated", tenant_models=[
+        moe_cfg.arch_id + f" ({moe_cfg.n_layers} layers)", model.cfg.arch_id],
+        **numbers, launches=launches, equals_solo=same, **gate,
+        decode_attn_by_heads={h: n for (h, _), n in shapes.items()})
+    require(all(same.values()), run, f"colocated streams differ from the "
+            f"solo ones: {same}")
+    return shapes, {"moe_gmm": launches["moe_gmm"],
+                    "decode_attn": sum(n for (h, _), n in shapes.items()
+                                       if h == moe_cfg.n_heads)}
+
+
 DS_LAYERS, DS_MOE_LAYERS = 5, 2  # DeepSeek-V3 cut: 3 dense + 2 MoE layers
 DS_SLICE = 32                    # experts per plain-version comparison
 
 
-def _first_call(module, name: str, run):
-    """(args, kwargs) of the first call of ``module.name`` while ``run()``
+def _calls(module, name: str, run):
+    """(args, kwargs) of every call of ``module.name`` while ``run()``
     runs; the kernels' launch counters are left as they were."""
     from repro_torch.kernels.decode_attn import decode_attn
     from repro_torch.kernels.moe_gmm import moe_gmm
@@ -1920,8 +2438,7 @@ def _first_call(module, name: str, run):
     fn, seen = getattr(module, name), []
 
     def keep(*args, **kw):
-        if not seen:
-            seen.append((args, kw))
+        seen.append((args, kw))
         return fn(*args, **kw)
     setattr(module, name, keep)
     try:
@@ -1929,7 +2446,7 @@ def _first_call(module, name: str, run):
     finally:
         setattr(module, name, fn)
     moe_gmm.launches, decode_attn.launches = counts
-    return seen[0]
+    return seen
 
 
 def _ds_gmm_check(call, flush):
@@ -2043,14 +2560,14 @@ def phase_serve_deepseek():
     # (every row frozen), and its buckets for the stream's longest prompt
     # in its 256-token bucket. The kernels run on the layer's own leaves.
     decode = _frozen_decode(eng)
-    moe_args = _first_call(tt, "moe_apply", decode)[0]
-    dec_call = _first_call(ops, "moe_ffn", decode)
+    moe_args = _calls(tt, "moe_apply", decode)[0][0]
+    dec_call = _calls(ops, "moe_ffn", decode)[0]
     prompt = max((r.prompt for r in reqs), key=len)
     toks = torch.tensor([[0] * (256 - len(prompt)) + [int(t) for t in prompt]],
                         device="cuda")
     kmodel = model.with_kernels()
-    pre_call = _first_call(ops, "moe_ffn", lambda: kmodel.prefill(
-        params, {"tokens": toks}, kmodel.init_cache(1, CACHE_CAP)))
+    pre_call = _calls(ops, "moe_ffn", lambda: kmodel.prefill(
+        params, {"tokens": toks}, kmodel.init_cache(1, CACHE_CAP)))[0]
 
     # Expert parallelism over 4 in-process ranks.
     fns = {"unsharded": decode}
@@ -2099,7 +2616,7 @@ def phase_serve_deepseek():
     gmm = {"decode": _ds_gmm_check(dec_call, flush),
            "prefill256": _ds_gmm_check(pre_call, flush),
            "ep_rank_decode": _ds_gmm_check(
-               _first_call(ops, "moe_ffn", fns["aurora"]), flush)}
+               _calls(ops, "moe_ffn", fns["aurora"])[0], flush)}
     del pre_call, flush
     for step, row in gmm.items():
         emit("timing", name="moe_gmm", arch=cfg.arch_id, step=step, **row)
@@ -2153,6 +2670,10 @@ def main() -> int:
         r["launches"] += sum(part[r["name"]] for part in (
             colocated, replicated, chaos, traced, ep))
         r["arch"] = model.cfg.arch_id
+    dense_rows, colocated_moe = phase_serve_dense(model, params, streams)
+    for r in rows:
+        r["launches"] += colocated_moe[r["name"]]
+    rows += dense_rows
     # The phi3.5 model, its params and engines go before DeepSeek-V3's
     # ~53 GB of weights are made.
     del model, params, monitor, spec

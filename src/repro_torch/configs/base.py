@@ -1,9 +1,11 @@
 """Model configuration (the port's own copy of ``repro/configs/base.py``).
 
-Only what the GQA, MLA and MoE serving slices read is kept: ``MoEConfig``,
-``MLAConfig``, ``ModelConfig`` with its attention/FFN/MoE fields,
+Only what the ported decoder families read is kept: ``MoEConfig``,
+``MLAConfig``, ``ModelConfig`` with its attention (q/k-norm, sliding
+window, layer pattern), FFN and MoE fields, ``layer_kinds()``,
 ``reduced()``, the smoke-test variant (<= 2 layers, d_model <= 256, <= 4
-experts, fp32), and ``cut_depth``, the layer cut of a full-width config.
+experts, a pattern cut to ``"LG"`` with a window of at most 16, fp32), and
+``cut_depth``, the layer cut of a full-width config.
 """
 
 from __future__ import annotations
@@ -49,7 +51,10 @@ class ModelConfig:
     n_heads: int = 0
     n_kv_heads: int = 0
     head_dim: int = 0
+    qk_norm: bool = False
     rope_theta: float = 10_000.0
+    sliding_window: int | None = None      # window size of the L layers
+    layer_pattern: str | None = None       # e.g. "LLLLLG" repeated; None=all G
     mla: MLAConfig | None = None   # MLA ignores n_kv_heads and head_dim
 
     d_ff: int = 0
@@ -60,6 +65,15 @@ class ModelConfig:
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"
+
+    def layer_kinds(self) -> list[str]:
+        """Per-layer kind: 'G' global attention, 'L' sliding-window
+        attention (the pattern repeated over the depth; a leading dense
+        layer of an MoE config is told apart by ``first_dense_layers``)."""
+        if self.layer_pattern:
+            pat = self.layer_pattern
+            return [pat[i % len(pat)] for i in range(self.n_layers)]
+        return ["G"] * self.n_layers
 
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: same family/code paths, tiny dims, fp32."""
@@ -90,6 +104,9 @@ class ModelConfig:
             head_dim=min(self.head_dim, 64) if self.head_dim else 0,
             d_ff=min(self.d_ff, 512) if self.d_ff else 0,
             vocab=min(self.vocab, 512),
+            sliding_window=(min(self.sliding_window, 16)
+                            if self.sliding_window else None),
+            layer_pattern="LG" if self.layer_pattern else None,
             moe=moe, mla=mla,
             dtype="float32",
         )
@@ -98,7 +115,10 @@ class ModelConfig:
 def cut_depth(cfg: ModelConfig, n_layers: int) -> ModelConfig:
     """``cfg`` cut to ``n_layers`` layers, every width kept. The cut takes
     the MoE layers first: an MoE config's leading dense layers stay while
-    at least one MoE layer is left beside them."""
+    at least one MoE layer is left beside them. A layer pattern keeps its
+    phase: the kinds are the first ``n_layers`` of the repeated pattern,
+    so a multiple of its length keeps whole blocks (12 layers of gemma3
+    are 2 x ``LLLLLG``) and any other depth ends on a partial block."""
     if n_layers < 1:
         raise ValueError(f"n_layers must be >= 1, got {n_layers}")
     moe = cfg.moe

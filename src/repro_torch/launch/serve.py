@@ -1,37 +1,53 @@
-"""Serving driver of the port: continuous batching over a Poisson stream.
+"""Serving driver of the port: single-model or colocated dual-model, static
+batch or continuous batching over a Poisson stream.
 
+  python -m repro_torch.launch.serve --arch phi4-mini-3.8b --kernels \
+      --batch 8 --prompt-len 128 --max-new-tokens 32 --cache-cap 512
+  python -m repro_torch.launch.serve --arch gemma3-27b --reduced \
+      --device cpu --kernels --batch 3 --cache-cap 32
   python -m repro_torch.launch.serve --arch phi3.5-moe-42b-a6.6b --kernels \
       --n-layers 8 --batch 8 --prompt-len 128 --max-new-tokens 32 \
       --cache-cap 512 --arrival-rate 0.5 --num-requests 8
   python -m repro_torch.launch.serve --arch phi3.5-moe-42b-a6.6b --reduced \
       --device cpu --arrival-rate 0.5 --num-requests 6 --batch 3 \
       --cache-cap 32 --kernels
+  python -m repro_torch.launch.serve --arch phi3.5-moe-42b-a6.6b --reduced \
+      --device cpu --colocate-with phi4-mini-3.8b --kernels
 
   python -m repro_torch.launch.serve --arch deepseek-v3-671b --reduced \
-      --device cpu --kernels --batch 3 --cache-cap 32 --num-requests 4
+      --device cpu --kernels --batch 3 --cache-cap 32 --num-requests 4 \
+      --arrival-rate 0.5
 
   python -m repro_torch.launch.serve --arch phi3.5-moe-42b-a6.6b --reduced \
-      --device cpu --prefill-chunk 4 --prefill-pool 2 --step-budget 9 \
-      --ttft-slo 12
+      --device cpu --arrival-rate 0.5 --prefill-chunk 4 --prefill-pool 2 \
+      --step-budget 9 --ttft-slo 12
   python -m repro_torch.launch.serve --arch phi3.5-moe-42b-a6.6b --reduced \
       --device cpu --colocate-with phi3.5-moe-42b-a6.6b --kernels \
-      --prefill-chunk 4 --replan-interval 8
+      --arrival-rate 0.5 --prefill-chunk 4 --replan-interval 8
   python -m repro_torch.launch.serve --arch phi3.5-moe-42b-a6.6b --reduced \
       --device cpu --experts 8 --mesh 4 --overlap --kernels --batch 2 \
-      --cache-cap 32 --num-requests 4
+      --cache-cap 32 --num-requests 4 --arrival-rate 0.5
   torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
       --arch phi3.5-moe-42b-a6.6b --reduced --device cpu --experts 8 \
-      --mesh 4 --kernels --batch 2 --cache-cap 32 --num-requests 4
+      --mesh 4 --kernels --batch 2 --cache-cap 32 --num-requests 4 \
+      --arrival-rate 0.5
 
-The counterpart of ``python -m repro.launch.serve`` for the continuous
-paths. ``--colocate-with ARCH`` serves a second model (weights from seed
-1) beside the first in ``ColocatedContinuousEngine``, with the expert
-pairing that ``AuroraPlanner.plan_colocated`` picks from synthetic traces
-of both models; ``--replan-interval N`` re-plans it from the live routing
+The counterpart of ``python -m repro.launch.serve``. Without
+``--arrival-rate`` it serves one static batch of ``--batch`` requests
+through ``ServingEngine`` (with ``--colocate-with``, two batches in
+lockstep through ``ColocatedEngine``); the flags that only the continuous
+engines read (chunked admission, SLOs, re-planning, telemetry, ``--mesh``)
+then refuse. ``--arrival-rate λ`` switches to the continuous engines, with
+Exp(λ) inter-arrival gaps in decode-step units. ``--colocate-with ARCH``
+serves a second model (weights from seed 1) beside the first: when both
+are MoE models with one expert count, with the expert pairing that
+``AuroraPlanner.plan_colocated`` picks from synthetic traces of both
+models, and ``--replan-interval N`` re-plans it from the live routing
 counts every N lockstep decode steps, adopting a plan that is predicted
-faster by more than ``--replan-threshold``. Inter-arrival gaps are
-Exp(``--arrival-rate``) in decode-step units. ``--prefill-chunk``, ``--step-budget``,
-``--prefill-pool`` and ``--bucket-policy`` configure chunked admission;
+faster by more than ``--replan-threshold``; beside a dense model there is
+no pairing to plan, and ``--replan-interval`` refuses. ``--prefill-chunk``,
+``--step-budget``, ``--prefill-pool`` and ``--bucket-policy`` configure
+chunked admission;
 ``--ttft-slo``/``--tpot-slo`` declare a ``TenantSpec`` (p95 targets in
 engine steps) and switch admission to ``EdfAdmission`` over the same chunk
 and budget. ``--kernels`` serves through the hand-written CUDA
@@ -77,9 +93,11 @@ def main(argv=None) -> int:
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new-tokens", type=int, default=16)
     ap.add_argument("--cache-cap", type=int, default=64)
-    ap.add_argument("--arrival-rate", type=float, default=0.5,
-                    help="requests per decode step (Poisson)")
-    ap.add_argument("--num-requests", type=int, default=12)
+    ap.add_argument("--arrival-rate", type=float, default=None,
+                    help="requests per decode step (Poisson); enables "
+                         "continuous batching (default: one static batch)")
+    ap.add_argument("--num-requests", type=int, default=12,
+                    help="stream length for --arrival-rate mode")
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="chunked prefill: absorb at most N prompt tokens "
                          "per engine step")
@@ -135,6 +153,23 @@ def main(argv=None) -> int:
         # path while the user believes they measured EP dispatch.
         raise SystemExit("--overlap/--moe-impl configure the distributed "
                          "EP dispatch; add --mesh N (or drop them)")
+    if args.arrival_rate is None:
+        continuous_only = [
+            flag for flag, on in (
+                ("--prefill-chunk", args.prefill_chunk is not None),
+                ("--step-budget", args.step_budget is not None),
+                ("--prefill-pool", args.prefill_pool != 1),
+                ("--ttft-slo", args.ttft_slo is not None),
+                ("--tpot-slo", args.tpot_slo is not None),
+                ("--replan-interval", args.replan_interval is not None),
+                ("--mesh", args.mesh is not None),
+                ("--trace-out", args.trace_out is not None),
+                ("--metrics-out", args.metrics_out is not None)) if on]
+        if continuous_only:
+            # The static engines read none of these: serving without them
+            # would measure something else than the user asked for.
+            raise SystemExit(f"{'/'.join(continuous_only)} configure the "
+                             "continuous engines; add --arrival-rate")
 
     telemetry = None
     if args.trace_out or args.metrics_out:
@@ -224,6 +259,8 @@ def _serve(args, telemetry) -> int:
     if args.colocate_with is not None:
         return _serve_colocated(args, config, cfg, model, params, load, rng,
                                 group)
+    if args.arrival_rate is None:
+        return _serve_static(args, cfg, model, params, rng)
     if args.replan_interval is not None:
         raise SystemExit("--replan-interval needs --colocate-with")
     kw = dict(batch_slots=args.batch, cache_cap=args.cache_cap,
@@ -243,6 +280,23 @@ def _serve(args, telemetry) -> int:
     print(f"{total} tokens in {eng.decode_steps} decode steps "
           f"({total / max(eng.decode_steps, 1):.2f} tok/step, "
           f"{args.batch} slots)")
+    return 0
+
+
+def _serve_static(args, cfg, model, params, rng) -> int:
+    """One static batch of ``--batch`` random prompts through
+    ``ServingEngine``, as the reference's default path."""
+    from repro_torch.serving import Request, ServingEngine
+    eng = ServingEngine(model, params, batch_slots=args.batch,
+                        cache_cap=args.cache_cap, kernels=args.kernels)
+    reqs = [Request(prompt=list(rng.integers(1, cfg.vocab, args.prompt_len)),
+                    max_new_tokens=args.max_new_tokens)
+            for _ in range(args.batch)]
+    for i, r in enumerate(eng.serve(reqs)):
+        print(f"req {i}: {r.out_tokens}")
+    total = sum(len(r.out_tokens) for r in reqs)
+    print(f"{total} tokens in {eng.decode_steps} decode steps (static "
+          f"batch of {args.batch})")
     return 0
 
 
@@ -271,14 +325,16 @@ def _distributed(args, cfg, group, engine_cls, *models_params, **kw):
 def _serve_colocated(args, config, cfg, model, params, load, rng,
                      group=None) -> int:
     """Two models in ``ColocatedContinuousEngine`` (its distributed
-    counterpart over ``group``): the pairing is planned from synthetic
-    traces and re-seated into model B's params in place; two Poisson
-    streams, one per model."""
+    counterpart over ``group``), or without ``--arrival-rate`` in the
+    static ``ColocatedEngine``. When both are MoE models with one expert
+    count, the pairing is planned from synthetic traces and re-seated into
+    model B's params in place. Two Poisson streams (static: two batches of
+    ``--batch`` prompts), one per model."""
     from repro_torch.core import (AuroraPlanner, homogeneous_cluster,
                                   synthetic_trace)
     from repro_torch.serving import (ColocatedContinuousEngine,
-                                     OnlineReplanner, poisson_requests,
-                                     reseat_pairing)
+                                     ColocatedEngine, OnlineReplanner,
+                                     poisson_requests, reseat_pairing)
 
     cfg_b, model_b = load(args.colocate_with)
     params_b = model_b.init(1)
@@ -299,6 +355,17 @@ def _serve_colocated(args, config, cfg, model, params, load, rng,
                              "equal expert counts")
         replan = OnlineReplanner(planner, interval=args.replan_interval,
                                  threshold=args.replan_threshold)
+    if args.arrival_rate is None:
+        eng = ColocatedEngine(model.with_kernels(args.kernels),
+                              model_b.with_kernels(args.kernels), params,
+                              params_b)
+        pa = rng.integers(1, cfg.vocab, (args.batch, args.prompt_len))
+        pb = rng.integers(1, cfg_b.vocab, (args.batch, args.prompt_len))
+        out_a, out_b = eng.serve(pa, pb, max_new_tokens=args.max_new_tokens,
+                                 cache_cap=args.cache_cap)
+        print("model A:", out_a.tolist())
+        print("model B:", out_b.tolist())
+        return 0
     kw = dict(batch_slots=args.batch, cache_cap=args.cache_cap,
               config=config, pair=list(plan.pair) if plan else None,
               replan=replan)

@@ -2,11 +2,14 @@
 parts of ``repro/models/attention.py``).
 
 Caches are fixed-capacity and updated IN PLACE (the reference returns a
-new cache instead). GQA caches ``{"k", "v"}`` of shape (B, cap, Hkv, D).
-MLA (DeepSeek-V3) caches the compressed latent ``{"ckv", "k_rope"}`` of
-shapes (B, cap, kv_lora) and (B, cap, rope), prefills in the direct form
-and decodes in the absorbed form. Cross-attention and sliding-window rings
-are not ported.
+new cache instead). GQA caches ``{"k", "v"}`` of shape (B, cap, Hkv, D):
+global layers hold ``cap`` positions, sliding-window layers a ring of
+``min(cap, window)`` (RoPE is applied at write time with absolute
+positions, so ring slots need no re-rotation; q/k-norm, when the config
+has it, runs before RoPE). MLA (DeepSeek-V3) caches the compressed latent
+``{"ckv", "k_rope"}`` of shapes (B, cap, kv_lora) and (B, cap, rope),
+prefills in the direct form and decodes in the absorbed form.
+Cross-attention is not ported.
 """
 
 from __future__ import annotations
@@ -36,19 +39,25 @@ def _cache_write(cache_arr, new, slot):
 
 
 def attn_block(p, x, *, cfg, pos, cache, length=None, mode="prefill",
-               kernels=None, row_mask=None):
+               kernels=None, row_mask=None, window=None):
     """GQA attention. x: (B, S, d); pos: (B, S) absolute positions.
+    ``window``: the sliding window of an L layer (None for G layers).
 
     mode "prefill" with ``length=None``: a fresh one-shot prefill; it
-    attends its own keys and writes them to cache positions [0, S).
+    attends its own keys (causal, within the window) and writes them to
+    cache positions [0, S), or, into a cache smaller than the prompt (a
+    ring), its last ``cap`` keys at ``pos % cap``.
     mode "prefill" with ``length`` (a scalar or a (B,) vector of fill
     levels): a chunked continuation; the chunk's keys land at positions
     [length, length + S) of each row, and its queries attend the cached
     prefix plus the causal part of the chunk (``causal_offset = length``,
-    ``valid_len = length + S``). The caller keeps length + S <= cap.
-    mode "decode": S == 1, the token is written at ``min(length, cap - 1)``
-    and attends the first ``min(length + 1, cap)`` positions; through
-    ``ops.decode_attn_auto`` when ``kernels`` is set.
+    ``valid_len = length + S``). The caller keeps length + S <= cap (a
+    continuation into a cache smaller than the chunk raises).
+    mode "decode": S == 1; the token is written at ``length % cap`` on a
+    ring (``window`` set and ``cap <= window``), else at ``min(length,
+    cap - 1)``, and attends the first ``min(length + 1, cap)`` positions
+    (the whole ring once it has wrapped); through ``ops.decode_attn_auto``
+    when ``kernels`` is set.
     ``row_mask`` (decode, (B,) bool): rows where it is False attend with
     their token written, as in the reference, but keep their previous cache
     contents afterwards. Returns y (B, S, d); the cache is updated in place.
@@ -57,17 +66,25 @@ def attn_block(p, x, *, cfg, pos, cache, length=None, mode="prefill",
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
 
     if mode == "prefill" and length is None:
         cap = cache["k"].shape[1]
+        out = attention_core(q, k, v, causal_offset=0, valid_len=None,
+                             window=window)
         if cap < s:
-            raise ValueError(f"prefill of {s} tokens exceeds the cache "
-                             f"capacity {cap}")
-        out = attention_core(q, k, v, causal_offset=0, valid_len=None)
-        cache["k"][:, :s] = k
-        cache["v"][:, :s] = v
+            # A ring smaller than the prompt keeps its last cap tokens; their
+            # slots are consecutive mod cap, so the writes are unique.
+            slots = pos[0, s - cap:] % cap
+            cache["k"][:, slots] = k[:, s - cap:].to(cache["k"].dtype)
+            cache["v"][:, slots] = v[:, s - cap:].to(cache["v"].dtype)
+        else:
+            cache["k"][:, :s] = k
+            cache["v"][:, :s] = v
     elif mode == "prefill":
         cap = cache["k"].shape[1]
         if cap < s:
@@ -85,10 +102,13 @@ def attn_block(p, x, *, cfg, pos, cache, length=None, mode="prefill",
             cache["k"][:, idx] = k.to(cache["k"].dtype)
             cache["v"][:, idx] = v.to(cache["v"].dtype)
         out = attention_core(q, cache["k"], cache["v"], causal_offset=start,
-                             valid_len=start + s)
+                             valid_len=start + s, window=window)
     elif mode == "decode":
         cap = cache["k"].shape[1]
-        slot = torch.clamp(length, max=cap - 1)
+        if window is not None and cap <= window:
+            slot = torch.remainder(length, cap)            # ring
+        else:
+            slot = torch.clamp(length, max=cap - 1)
         old = _slot_contents(cache, slot, row_mask)
         _cache_write(cache["k"], k, slot)
         _cache_write(cache["v"], v, slot)
@@ -158,7 +178,7 @@ def _mla_qkv(p, x, cfg, pos):
 
 
 def mla_block(p, x, *, cfg, pos, cache, length=None, mode="prefill",
-              kernels=None, row_mask=None):
+              kernels=None, row_mask=None, window=None):
     """MLA attention. x: (B, S, d); pos: (B, S) absolute positions.
 
     mode "prefill" (``length=None`` only): the direct form. K is each
@@ -175,7 +195,9 @@ def mla_block(p, x, *, cfg, pos, cache, length=None, mode="prefill",
     probabilities cast back to the cache dtype; the latent context times
     ``W^UV``. ``row_mask`` as in ``attn_block``. Every product is plain
     PyTorch, as in the reference (no Pallas kernel there), so ``kernels``
-    is taken for ``attn_block``'s signature and not read.
+    and ``window`` (an MLA stack has no sliding-window layers) are taken
+    for ``attn_block``'s signature and not read. A prompt above 2048
+    tokens prefills through ``flash_attention``, as in the reference.
     Returns y (B, S, d); the cache is updated in place.
     """
     m = cfg.mla

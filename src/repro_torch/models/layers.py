@@ -113,21 +113,74 @@ def plain_attention(q, k, v, mask):
     return out.to(q.dtype)
 
 
-def attention_core(q, k, v, *, causal_offset, valid_len):
-    """Plain GQA attention. q: (B,Sq,H,D); k,v: (B,Sk,Hkv,D), H = Hkv*G.
+def flash_attention(q, k, v, mask_fn, block_k: int = 1024):
+    """Memory-bounded GQA attention: a loop over KV blocks with an online
+    softmax (port of the reference's ``flash_attention``, whose
+    ``lax.scan`` is a Python loop here).
+
+    q: (B,Sq,Hkv,G,D); k,v: (B,Sk,Hkv,D). The (Sq, Sk) scores are never
+    materialised: the peak temporary is (B, Hkv, G, Sq, block_k).
+    ``mask_fn(q_pos, k_pos) -> bool`` builds one block's mask (causal,
+    sliding window, fill level). As in the reference, K and
+    V are zero-padded to whole blocks, the running max starts at -1e30 (so
+    a row masked so far weighs every key alike until a live key arrives),
+    and the output is acc / max(l, 1e-30).
+    """
+    b, sq, hkv, g, d = q.shape
+    sk = k.shape[1]
+    nb = -(-sk // block_k)
+    pad = nb * block_k - sk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    dev = q.device
+    scale = d ** -0.5
+    q32 = q.float()
+    q_pos = torch.arange(sq, device=dev)[:, None]
+    m = torch.full((b, hkv, g, sq), _NEG_INF, dtype=torch.float32,
+                   device=dev)
+    lsum = torch.zeros((b, hkv, g, sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, hkv, g, sq, d), dtype=torch.float32, device=dev)
+    for blk in range(nb):
+        kblk = k[:, blk * block_k:(blk + 1) * block_k]
+        vblk = v[:, blk * block_k:(blk + 1) * block_k]
+        k_pos = blk * block_k + torch.arange(block_k, device=dev)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", q32, kblk.float()) * scale
+        valid = (k_pos < sk)[None, :] & mask_fn(q_pos, k_pos[None, :])
+        s = torch.where(valid, s, _NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        lsum = lsum * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhgqk,bkhd->bhgqd", p.to(vblk.dtype).float(), vblk.float())
+        m = m_new
+    out = acc / torch.clamp(lsum, min=1e-30)[..., None]      # (B,Hkv,G,Sq,D)
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)
+
+
+FLASH_ABOVE = 4_194_304          # Sq * Sk above which prefill goes blocked
+FLASH_BLOCK = 1024               # keys per block (the reference's default)
+
+
+def attention_core(q, k, v, *, causal_offset, valid_len, window=None):
+    """GQA attention. q: (B,Sq,H,D); k,v: (B,Sk,Hkv,D), H = Hkv*G.
 
     ``causal_offset``: query i may attend key j iff j <= i + offset (None =
-    no causal mask). ``valid_len``: keys >= valid_len are masked (the
-    cache fill level). Each may be a scalar (a number or a 0-d tensor, one
-    value for the whole batch) or a (B,) vector of per-slot values.
+    no causal mask). ``window``: with a causal offset, also j > i + offset
+    - window (a sliding window; None = unbounded). ``valid_len``: keys >=
+    valid_len are masked (the cache fill level). ``causal_offset`` and
+    ``valid_len`` may each be a scalar (a number or a 0-d tensor, one value
+    for the whole batch) or a (B,) vector of per-slot values.
 
     Three forms, as in the reference: a single query keeps the (Hkv, G)
-    split; several queries with per-row offsets or fill levels (a batch of
-    chunked continuations, each at its own offset) use the grouped form
-    with a materialised (B, Sq, Sk) mask; otherwise KV is repeated per head
-    and one (Sq, Sk) mask serves the batch. The reference's blocked flash
-    form, taken only above Sq*Sk = 4,194,304, and sliding windows are not
-    ported: no prefill or chunk on the serving path reaches that size.
+    split (its per-slot fill levels mask alone, the decode form; a scalar
+    fill level takes the causal and window terms too); several queries
+    with per-row offsets or fill levels (a batch of chunked
+    continuations, each at its own offset) use the grouped form with a
+    materialised (B, Sq, Sk) mask; otherwise KV is repeated per head and
+    one (Sq, Sk) mask serves the batch, through ``flash_attention`` in
+    blocks of ``FLASH_BLOCK`` keys once Sq * Sk exceeds ``FLASH_ABOVE``.
     """
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -139,6 +192,8 @@ def attention_core(q, k, v, *, causal_offset, valid_len):
                        dtype=torch.bool, device=dev)
         if causal_offset is not None:
             m = m & (kj <= qi + causal_offset)
+            if window is not None:
+                m = m & (kj > qi + causal_offset - window)
         if valid_len is not None:
             m = m & (kj < valid_len)
         return m
@@ -167,6 +222,8 @@ def attention_core(q, k, v, *, causal_offset, valid_len):
         if causal_offset is not None:
             off = torch.as_tensor(causal_offset, device=dev).reshape(-1, 1, 1)
             m = m & (kjb <= qi + off)
+            if window is not None:
+                m = m & (kjb > qi + off - window)
         if valid_len is not None:
             vl = torch.as_tensor(valid_len, device=dev).reshape(-1, 1, 1)
             m = m & (kjb < vl)
@@ -177,6 +234,9 @@ def attention_core(q, k, v, *, causal_offset, valid_len):
     k = _repeat_kv(k, h // hkv)
     v = _repeat_kv(v, h // hkv)
     qg = q[:, :, :, None, :]                       # (B,Sq,H,1,D): G=1 form
+    if sq * sk > FLASH_ABOVE:
+        out = flash_attention(qg, k, v, mask_fn, block_k=FLASH_BLOCK)
+        return out.reshape(b, sq, h, d)
     mask = None
     if causal_offset is not None or valid_len is not None:
         qi = torch.arange(sq, device=dev)[:, None]

@@ -135,12 +135,10 @@ class Model:
         recorded fill level. Between chunks the engine freezes the row
         against decode writes (``decode_step(row_mask=...)``). ``cap`` is
         the cache capacity, as in the reference (it sizes the fresh cache
-        there; here it must match the shared cache). Returns (logits,
-        cache), plus the chunk's (n_moe_layers, 1, C, E) routing counts
-        when ``collect_moe_stats``."""
-        have = tf.cache_leaves(cache)[0].shape[2]   # (count, B, cap, ...)
-        if cap != have:
-            raise ValueError(f"cap {cap} != the cache's capacity {have}")
+        there; here it must match the shared cache's, rings included).
+        Returns (logits, cache), plus the chunk's (n_moe_layers, 1, C, E)
+        routing counts when ``collect_moe_stats``."""
+        tf.check_capacity(self.cfg, cache, cap)
         sub = tf.slice_cache_slot(cache, slot)
         if first:
             for leaf in tf.cache_leaves(sub):
@@ -159,10 +157,18 @@ class Model:
         """Longest (padded) prompt absorbable in chunks: ``None`` when
         unbounded, 0 when the arch cannot chunk at all. MLA is 0, as in
         the reference: its prefill writes the latent cache from offset 0
-        only. Global GQA caches continue without bound. (The reference's
-        other bounds come with layer kinds the port does not have:
-        encoder-decoder 0, sliding-window rings the ring size.)"""
-        return 0 if self.cfg.mla is not None else None
+        only. A sliding-window ring continues exactly while the prompt
+        stays inside it (a prompt that wraps it would lose slot identity
+        mid-prefill), so a stack with L layers is bounded by the ring,
+        ``transformer.entry_capacity("L", ...)``. Global GQA caches continue
+        without bound. (The reference's encoder-decoder bound, 0, comes
+        with a layer kind the port does not have.)"""
+        cfg = self.cfg
+        if cfg.mla is not None:
+            return 0
+        if any(k == "L" for seg in tf.segments_of(cfg) for k in seg.kinds):
+            return tf.entry_capacity("L", cfg, cache_cap)
+        return None
 
     def supports_chunked_prefill(self, total_len: int,
                                  cache_cap: int) -> bool:

@@ -6,12 +6,15 @@ are stacked per segment: every leaf of a segment's per-position dict has a
 leading ``count`` axis. The reference's ``lax.scan`` over that axis is a
 Python loop over the stacked layers here.
 
-Layer kinds ported: G (global attention + dense FFN), D (attention + dense
-FFN of ``dense_d_ff``: an MoE config's leading dense layers, DeepSeek-V3's
-first three) and E (attention + MoE FFN, with its shared expert when the
-config has one). Attention is GQA, or MLA when ``cfg.mla`` is set: then
-every layer's cache holds the latent ``{"ckv", "k_rope"}`` in place of
-``{"k", "v"}``. Caches are updated in place.
+Layer kinds ported: G (global attention + dense FFN), L (sliding-window
+attention + dense FFN: gemma3's ``LLLLLG`` pattern; its cache is a ring of
+``min(cap, sliding_window)`` positions), D (attention + dense FFN of
+``dense_d_ff``: an MoE config's leading dense layers, DeepSeek-V3's first
+three) and E (attention + MoE FFN, with its shared expert when the config
+has one). Attention is GQA (with q/k-norm leaves when ``cfg.qk_norm``), or
+MLA when ``cfg.mla`` is set: then every layer's cache holds the latent
+``{"ckv", "k_rope"}`` in place of ``{"k", "v"}``. Caches are updated in
+place.
 """
 
 from __future__ import annotations
@@ -34,13 +37,22 @@ class Segment:
 
 
 def segments_of(cfg) -> list[Segment]:
-    """Segment decomposition of the layer stack (G, D and E kinds)."""
+    """Segment decomposition of the layer stack (G, L, D and E kinds): a
+    layer pattern is one segment of ``n // len(pattern)`` blocks, plus a
+    one-block remainder segment of the pattern's first ``n % len``
+    kinds."""
     n = cfg.n_layers
     if cfg.moe is not None and cfg.moe.first_dense_layers:
         k = cfg.moe.first_dense_layers
         return [Segment(("D",), k), Segment(("E",), n - k)]
     if cfg.moe is not None:
         return [Segment(("E",), n)]
+    if cfg.layer_pattern:
+        p = len(cfg.layer_pattern)
+        segs = [Segment(tuple(cfg.layer_pattern), n // p)]
+        if n % p:
+            segs.append(Segment(tuple(cfg.layer_pattern[: n % p]), 1))
+        return segs
     return [Segment(("G",), n)]
 
 
@@ -75,18 +87,22 @@ def _ffn(n, d, f, dtype, device, gen):
 
 
 def _attn(n, cfg, dtype, device, gen) -> dict:
-    """GQA or MLA leaves at the reference's shapes and scales
-    (``init_attn``, ``init_mla``), stacked over ``n`` layers."""
+    """GQA (with q/k-norm scales when ``cfg.qk_norm``) or MLA leaves at the
+    reference's shapes and scales (``init_attn``, ``init_mla``), stacked
+    over ``n`` layers."""
     d, h = cfg.d_model, cfg.n_heads
     m = cfg.mla
     if m is None:
         hkv, hd = cfg.n_kv_heads, cfg.head_dim
-        return {
-            "wq": _normal((n, d, h, hd), d ** -0.5, dtype, device, gen),
-            "wk": _normal((n, d, hkv, hd), d ** -0.5, dtype, device, gen),
-            "wv": _normal((n, d, hkv, hd), d ** -0.5, dtype, device, gen),
-            "wo": _normal((n, h, hd, d), (h * hd) ** -0.5, dtype, device,
-                          gen)}
+        p = {"wq": _normal((n, d, h, hd), d ** -0.5, dtype, device, gen),
+             "wk": _normal((n, d, hkv, hd), d ** -0.5, dtype, device, gen),
+             "wv": _normal((n, d, hkv, hd), d ** -0.5, dtype, device, gen),
+             "wo": _normal((n, h, hd, d), (h * hd) ** -0.5, dtype, device,
+                           gen)}
+        if cfg.qk_norm:
+            p["q_norm"] = torch.zeros((n, hd), dtype=dtype, device=device)
+            p["k_norm"] = torch.zeros((n, hd), dtype=dtype, device=device)
+        return p
     qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
     r_q, r_kv = m.q_lora_rank, m.kv_lora_rank
     return {
@@ -152,11 +168,18 @@ def init_params(cfg, seed: int = 0, device="cpu") -> dict:
 # Caches
 # ---------------------------------------------------------------------------
 
+def entry_capacity(kind: str, cfg, cap: int) -> int:
+    """Positions a layer's cache holds: a ring of ``min(cap,
+    sliding_window)`` for an L layer, ``cap`` for any other."""
+    return min(cap, cfg.sliding_window) if kind == "L" else cap
+
+
 def init_cache(cfg, batch: int, cap: int, dtype=None, per_slot_len=False,
                device="cpu") -> dict:
-    """``{"len", "segments"}`` with leaves (count, batch, cap, ...): GQA
+    """``{"len", "segments"}`` with leaves (count, batch, cap_l, ...): GQA
     ``{"k", "v"}`` (..., Hkv, D), or MLA ``{"ckv", "k_rope"}`` (...,
-    kv_lora) and (..., rope) when ``cfg.mla`` is set. ``per_slot_len=True``
+    kv_lora) and (..., rope) when ``cfg.mla`` is set. ``cap_l`` is
+    ``entry_capacity``: ``cap``, or an L layer's ring. ``per_slot_len=True``
     makes ``len`` a (batch,) vector: each row (decode slot) tracks its own
     sequence length."""
     dtype = dtype or torch_dtype(cfg.dtype)
@@ -167,17 +190,31 @@ def init_cache(cfg, batch: int, cap: int, dtype=None, per_slot_len=False,
     for seg in segments_of(cfg):
         segs.append(tuple(
             {name: t.expand((seg.count,) + t.shape).clone()
-             for name, t in init_layer(cfg, batch, cap, dtype,
-                                       device).items()}
-            for _ in seg.kinds))
+             for name, t in init_layer(
+                 cfg, batch, entry_capacity(kind, cfg, cap), dtype,
+                 device).items()}
+            for kind in seg.kinds))
     return {"len": torch.zeros(shape_len, dtype=torch.int32, device=device),
             "segments": tuple(segs)}
+
+
+def check_capacity(cfg, cache, cap: int) -> None:
+    """Raise ValueError unless every entry of ``cache`` holds the positions
+    ``init_cache(cfg, ..., cap)`` gives it (rings included)."""
+    for seg, entries in zip(segments_of(cfg), cache["segments"]):
+        for kind, entry in zip(seg.kinds, entries):
+            have = next(iter(entry.values())).shape[2]   # (count, B, cap_l)
+            want = entry_capacity(kind, cfg, cap)
+            if have != want:
+                raise ValueError(f"cap {cap} gives a {kind} layer {want} "
+                                 f"positions; the cache holds {have}")
 
 
 def merge_cache_slot(cache, sub, slot: int):
     """Write a batch-1 cache ``sub`` into row ``slot`` of a multi-slot cache
     (in place; leaves are (count, batch, ...), so the slot is axis 1) and set
-    that slot's length. Returns ``cache``."""
+    that slot's length. Entries are matched one to one, so each keeps its
+    own capacity (global caches and rings alike). Returns ``cache``."""
     for seg_full, seg_sub in zip(cache["segments"], sub["segments"]):
         for full, new in zip(seg_full, seg_sub):
             for name in full:
@@ -193,7 +230,7 @@ def cache_leaves(cache):
 
 def slice_cache_slot(cache, slot: int):
     """Batch-1 VIEW of row ``slot`` of a multi-slot cache, the inverse of
-    ``merge_cache_slot``: leaves (count, 1, cap, ...) and a 0-d ``len``,
+    ``merge_cache_slot``: leaves (count, 1, cap_l, ...) and a 0-d ``len``,
     all sharing storage with ``cache``. A prefill continuation run on the
     view writes the slot's row and fill level in place, so no merge copy
     follows (the reference returns a copy, continues it and merges it
@@ -217,8 +254,9 @@ def _apply_layer(kind, p, x, entry, *, cfg, kernels, mode, pos, length,
     (``layers.ParallelContext``, None = one device)."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     block = attn_mod.mla_block if cfg.mla is not None else attn_mod.attn_block
+    window = cfg.sliding_window if kind == "L" else None
     y = block(p["attn"], h, cfg=cfg, pos=pos, cache=entry, length=length,
-              mode=mode, kernels=kernels, row_mask=row_mask)
+              mode=mode, kernels=kernels, row_mask=row_mask, window=window)
     x = x + y
     h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
     counts = None

@@ -1,18 +1,19 @@
-"""Serving: the continuous engine, its configuration and admission
-policies, the colocated and multi-tenant engines, live traffic monitoring
-with online re-planning, re-grouping and re-replication, fault tolerance
-(seedable fault injection, health monitoring, recovery) and the telemetry
-hub (metrics registry, structured spans, bounded event bus:
-``EngineConfig(telemetry=Telemetry())``), and the ``Distributed*`` engines,
-whose MoE layers run expert-parallel over an EP group with Aurora's
-permutation rounds."""
+"""Serving: the static and continuous engines, their configuration and
+admission policies, the colocated and multi-tenant engines, live traffic
+monitoring with online re-planning, re-grouping and re-replication, fault
+tolerance (seedable fault injection, health monitoring, recovery) and the
+telemetry hub (metrics registry, structured spans, bounded event bus:
+``EngineConfig(telemetry=Telemetry())``), and the ``Distributed*``
+engines, whose MoE layers run expert-parallel over an EP group with
+Aurora's permutation rounds."""
 
 from ..core.errors import FaultError, PlanError
 from .config import (AdmissionPolicy, EdfAdmission, EngineConfig,
                      FifoAdmission, LengthBucketedAdmission, RequestSpec,
                      ShedEvent, TenantSpec, TokenBudgetAdmission,
                      make_bucketer, scale_admission)
-from .engine import ContinuousEngine, Request, poisson_requests, serve_stream
+from .engine import (ContinuousEngine, Request, ServingEngine,
+                     poisson_requests, serve_stream)
 from .colocated import (ColocatedContinuousEngine, ColocatedEngine,
                         MultiTenantContinuousEngine, apply_pairing,
                         build_lockstep_step, inverse_pair, reseat_pairing)
@@ -38,7 +39,8 @@ __all__ = ["AdmissionPolicy", "BusEvent", "ChaosHarness",
            "FaultInjector", "FaultPlan", "FifoAdmission", "HealthMonitor",
            "LengthBucketedAdmission", "MetricsRegistry",
            "MultiTenantContinuousEngine", "OnlineReplanner", "PlanError",
-           "ReplanEvent", "Request", "RequestSpec", "RingBuffer", "ShedEvent",
+           "ReplanEvent", "Request", "RequestSpec", "RingBuffer",
+           "ServingEngine", "ShedEvent",
            "SpanRecord", "Straggler", "Telemetry", "TenantSpec",
            "TokenBudgetAdmission", "TrafficMonitor", "apply_pairing",
            "build_lockstep_step", "device_traffic", "distribute",

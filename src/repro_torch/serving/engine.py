@@ -1,5 +1,13 @@
-"""Continuous-batching engine (port of ``ContinuousEngine`` and its helpers
-from ``repro/serving/engine.py``).
+"""Serving engines: static fixed-batch and continuous batching (port of
+``ServingEngine``, ``ContinuousEngine`` and their helpers from
+``repro/serving/engine.py``).
+
+``ServingEngine`` runs one fixed-shape batch to completion: prompts are
+left-padded with 0 to a common length, prefilled together into a cache
+with one scalar fill level, and the whole batch decodes greedily for
+``max(max_new_tokens)`` steps. It is the baseline the continuous engine is
+set against: with every request arriving at t = 0 and the same pad length,
+the two emit identical streams.
 
 ``ContinuousEngine`` owns a request queue plus ``batch_slots`` decode slots
 over a shared per-slot KV cache (``init_cache(per_slot_len=True)``). Each
@@ -74,8 +82,8 @@ from .config import EngineConfig, RequestSpec, ShedEvent
 from .events import RingBuffer
 from .telemetry import STEP_BOUNDS, record_adoption, tree_leaves
 
-__all__ = ["Request", "poisson_requests", "serve_stream", "ContinuousEngine",
-           "wrap_step_callable"]
+__all__ = ["Request", "poisson_requests", "serve_stream", "ServingEngine",
+           "ContinuousEngine", "wrap_step_callable"]
 
 
 @dataclasses.dataclass
@@ -144,6 +152,51 @@ def serve_stream(step_fn, pools) -> None:
             t = max(t + 1.0, min(due))
         else:
             t += 1.0
+
+
+class ServingEngine:
+    """Static batch serving over ``batch_slots`` rows of one cache with a
+    scalar fill level. ``kernels`` (True or a ``KernelConfig``) routes the
+    model through the kernel path, as ``EngineConfig(kernels=...)`` does
+    for the continuous engine. ``decode_steps`` counts decode calls."""
+
+    def __init__(self, model: Model, params, batch_slots: int,
+                 cache_cap: int, kernels=False):
+        self.model = model.with_kernels(kernels)
+        self.params = params
+        self.device = self.model.device
+        self.batch_slots = batch_slots
+        self.cache_cap = cache_cap
+        self.decode_steps = 0
+
+    def _pad_prompts(self, reqs: list[Request]) -> np.ndarray:
+        plen = max(len(r.prompt) for r in reqs)
+        toks = np.zeros((self.batch_slots, plen), np.int64)
+        for i, r in enumerate(reqs):
+            toks[i, plen - len(r.prompt):] = r.prompt    # left-pad with 0
+        return toks
+
+    def serve(self, reqs: list[Request]) -> list[Request]:
+        """Run one batch of requests to completion (greedy decoding): one
+        prefill, then ``max(max_new_tokens)`` decode steps over every row
+        (rows past ``len(reqs)`` are all pad), each request keeping its
+        first ``max_new_tokens`` tokens."""
+        if len(reqs) > self.batch_slots:
+            raise ValueError("too many requests for the batch")
+        model, vocab = self.model, self.model.cfg.vocab
+        toks = torch.from_numpy(self._pad_prompts(reqs)).to(self.device)
+        cache = model.init_cache(self.batch_slots, self.cache_cap)
+        logits, cache = model.prefill(self.params, {"tokens": toks}, cache)
+        tok = torch.argmax(logits[:, -1:, :vocab], dim=-1)
+        for _ in range(max(r.max_new_tokens for r in reqs)):
+            host = tok.cpu().numpy()
+            for i, r in enumerate(reqs):
+                if len(r.out_tokens) < r.max_new_tokens:
+                    r.out_tokens.append(int(host[i, 0]))
+            logits, cache = model.decode_step(self.params, tok, cache)
+            self.decode_steps += 1
+            tok = torch.argmax(logits[:, :, :vocab], dim=-1)
+        return reqs
 
 
 class ContinuousEngine:

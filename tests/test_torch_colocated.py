@@ -84,6 +84,7 @@ def test_launch_colocated_replan_on_cpu(capsys):
                        "--colocate-with", ARCH, "--kernels",
                        "--num-requests", "3", "--batch", "2",
                        "--cache-cap", "32", "--max-new-tokens", "4",
+                       "--arrival-rate", "0.5",
                        "--prefill-chunk", "4", "--replan-interval", "2",
                        "--replan-threshold", "-1"]) == 0
     out = capsys.readouterr().out
@@ -91,4 +92,4 @@ def test_launch_colocated_replan_on_cpu(capsys):
     assert "lockstep decode steps" in out and "replan @ step 2" in out
     with pytest.raises(KeyError):
         serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
-                    "--colocate-with", "qwen3-32b"])
+                    "--colocate-with", "mamba2-1.3b"])

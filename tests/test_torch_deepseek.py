@@ -230,12 +230,12 @@ def test_launch_serve_on_cpu(capsys):
     from repro_torch.launch import serve
     assert serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
                        "--kernels", "--batch", "3", "--cache-cap", "32",
-                       "--num-requests", "4"]) == 0
+                       "--num-requests", "4", "--arrival-rate", "0.5"]) == 0
     assert "tokens in" in capsys.readouterr().out
     with pytest.raises(ValueError, match="chunk"):
         serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
                     "--batch", "2", "--cache-cap", "32", "--num-requests",
-                    "2", "--prefill-chunk", "4"])
+                    "2", "--arrival-rate", "0.5", "--prefill-chunk", "4"])
 
 
 # Expert parallelism: capacity factor 8.0, so that no assignment drops on

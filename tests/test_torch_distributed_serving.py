@@ -312,7 +312,7 @@ def test_launch_serve_mesh_in_process(capsys, extra):
                        "--experts", "8", "--mesh", "4", "--num-requests",
                        "2", "--batch", "2", "--cache-cap", "32",
                        "--max-new-tokens", "3", "--prompt-len", "8",
-                       "--kernels"] + extra) == 0
+                       "--arrival-rate", "0.5", "--kernels"] + extra) == 0
     out = capsys.readouterr().out
     assert "in-process (4 ranks on cpu)" in out and "tokens in" in out
 

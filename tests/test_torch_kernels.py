@@ -180,6 +180,11 @@ ATTN_SHAPES = [
     (3, 8, 2, 200, 64, torch.float32),        # chip_smoke's fp32 case
     (1, 8, 8, 4096, 256, torch.bfloat16),     # one row, long cache, MHA
     (64, 64, 8, 32768, 128, torch.bfloat16),  # many rows, G = 8
+    (8, 24, 8, 512, 128, torch.bfloat16),     # served phi4-mini, G = 3
+    (8, 16, 16, 512, 256, torch.bfloat16),    # served gemma-7b, D = 256
+    (8, 64, 8, 512, 128, torch.bfloat16),     # served qwen3-32b, G = 8
+    (8, 32, 16, 1024, 128, torch.bfloat16),   # served gemma3-27b ring
+    (8, 32, 16, 4096, 128, torch.bfloat16),   # and its global cache
 ]
 
 

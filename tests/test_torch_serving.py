@@ -168,7 +168,8 @@ def test_bridge_round_trip_is_bit_exact(weights):
 def test_port_imports_no_jax_and_nothing_of_repro():
     """Importing the port and every submodule (the planner copy, the
     monitor, the colocated engines, health, faults, telemetry, the
-    expert-parallel modules and the DeepSeek-V3 config included) leaves
+    expert-parallel modules, the DeepSeek-V3 config and the dense
+    families' configs included) leaves
     ``jax`` and the JAX package out of ``sys.modules``; so does importing
     chip_smoke.py."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -187,7 +188,11 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "       'repro_torch.distributed.overlap',\n"
         "       'repro_torch.serving.distributed',\n"
         "       'repro_torch.sharding.rules', 'repro_torch.launch.mesh',\n"
-        "       'repro_torch.configs.deepseek_v3_671b'}\n"
+        "       'repro_torch.configs.deepseek_v3_671b',\n"
+        "       'repro_torch.configs.phi4_mini_3_8b',\n"
+        "       'repro_torch.configs.gemma_7b',\n"
+        "       'repro_torch.configs.qwen3_32b',\n"
+        "       'repro_torch.configs.gemma3_27b'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
@@ -201,7 +206,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 47       # every submodule walked
+    assert int(out.stdout.split()[-1]) >= 51       # every submodule walked
 
 
 def test_default_device_is_the_card():
@@ -230,7 +235,7 @@ def test_launch_serve_on_cpu(capsys, extra):
     assert serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
                        "--num-requests", "3", "--batch", "2",
                        "--cache-cap", "32", "--max-new-tokens", "4",
-                       "--kernels"] + extra) == 0
+                       "--arrival-rate", "0.5", "--kernels"] + extra) == 0
     out = capsys.readouterr().out
     assert "tokens in" in out
     assert ("EDF admission" in out) == ("--ttft-slo" in extra)
@@ -249,7 +254,7 @@ def test_engine_config_validation():
     with pytest.raises(ValueError):
         EngineConfig(prefill_len=0)
     with pytest.raises(KeyError):
-        get_config("qwen3-32b")
+        get_config("mamba2-1.3b")
     model = Model(get_config(ARCH).reduced(), device="cpu")
     eng = ContinuousEngine(model, model.init(0), batch_slots=2, cache_cap=16)
     from repro_torch.serving import Request

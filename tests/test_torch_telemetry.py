@@ -195,6 +195,7 @@ def test_launcher_writes_trace_and_metrics(tmp_path, capsys):
     assert serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
                        "--num-requests", "3", "--batch", "2",
                        "--cache-cap", "32", "--max-new-tokens", "4",
+                       "--arrival-rate", "0.5",
                        "--kernels", "--trace-out", base,
                        "--metrics-out", str(tmp_path / "m.json")]) == 0
     recs = [json.loads(ln) for ln in open(base + ".jsonl")]
