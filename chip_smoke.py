@@ -120,7 +120,24 @@ non-zero:
    serve numbers, the static batch's tok/s, a profile of phi4-mini's
    decode step, and whether the chunked and static streams equal the
    one-shot ones (bf16 rounding may part them: not gated).
-15. serve_deepseek, run last, after the phi3.5 model, params and engines
+15. serve_families, beside the still loaded phi3.5-MoE, one model at a
+   time (each freed before the next is made), full width and depth in
+   bf16: mamba2-1.3b (48 Mamba2 layers) on the serve stream one-shot and
+   with chunks of 64; zamba2-7b (70 Mamba2 layers and one shared
+   attention block used 11 times, D = 112) and qwen2-vl-7b (28 layers,
+   M-RoPE, G = 7) on the serve stream one-shot, qwen2-vl also one batch-1
+   prefill of 256 seeded patch embeddings; SeamlessM4T (24 encoder and
+   24 decoder layers, D = 64) through ``ServingEngine`` (8 prompts of 128
+   tokens, frames (8, 128, 1024), 32 new). Gates: every request
+   complete, finite logits, exact launch counts (``decode_attn`` once per
+   attention layer and decode step, by (H, S) at the call sites;
+   ``moe_gmm`` 0), the peak within 2 GB of the weights and caches, and
+   ``decode_attn`` within 2e-2 of its plain version on each attention
+   arch's served layer, then timed beside SDPA and its bound. Printed:
+   the serve numbers, a profile of three of each arch's frozen decode
+   steps (3000-5000 kernels a step make a longer trace slow to read), and
+   whether mamba2's chunked stream equals its one-shot one (not gated).
+16. serve_deepseek, run last, after the phi3.5 model, params and engines
    are freed (under 1 GB must stay allocated): full-width DeepSeek-V3 cut
    to 5 layers (the 3 published dense layers and 2 MoE layers; MLA, 256
    experts top-8, sigmoid router, shared expert; bf16, ~53.2 GB) serving
@@ -147,7 +164,11 @@ arrives at t = 0. It serves reduced DeepSeek-V3 (fp32, D + E, 4 experts top-2,
 sigmoid, shared expert) through the kernels and the plain path (streams
 identical), and at capacity factor 8.0 unsharded and through
 ``DistributedEngine`` over ``LocalGroup(4, cuda)`` as "ep" and "aurora"
-(streams equal the unsharded one). It also serves reduced phi3.5-MoE
+(streams equal the unsharded one). It serves reduced mamba2, zamba2 and
+qwen2-vl (fp32) through ``ContinuousEngine`` and reduced SeamlessM4T
+through ``ServingEngine`` with seeded frames, on the kernels and on the
+plain path (streams identical; mamba2 also with chunks of 4, equal to its
+one-shot stream). It also serves reduced phi3.5-MoE
 widened to 8 experts (cf 8.0) through ``DistributedEngine`` over
 ``LocalGroup(4, cuda)``: "ep", "aurora" (round robin, and rounds adopted
 from a trace), the overlap, and a ``ChaosHarness`` loss of rank 3 that
@@ -160,7 +181,8 @@ The parity phase also holds ``moe_gmm`` at replicated group sizes and with
 NaN-poisoned experts (NaN exactly in a live poisoned group's live rows,
 zeros elsewhere in it and in a dead poisoned group). Then a ``{"kernels":
 [...]}`` line (``moe_gmm`` at phi3.5's decode bucket and at DeepSeek-V3's,
-``decode_attn`` at phi3.5's shape and at each dense arch's) and, last,
+``decode_attn`` at phi3.5's shape, at each dense arch's and at zamba2's,
+qwen2-vl's and SeamlessM4T's) and, last,
 the ``{"ok": true, ...}`` line. Nothing of JAX
 is imported.
 """
@@ -480,6 +502,7 @@ def phase_reference():
     _reference_ep(cfg)
     _reference_deepseek()
     _reference_dense()
+    _reference_families()
 
 
 def _widen(cfg, n_experts: int):
@@ -675,6 +698,60 @@ def _reference_dense():
     emit("reference", archs=list(DENSE_ARCHS), dense=out)
     bad = {a: v for a, v in out.items() if False in v.values()}
     require(not bad, "reference", f"reduced dense streams differ: {bad}")
+
+
+def _reference_families():
+    """The four reduced families of this slice (fp32) on the card: mamba2,
+    zamba2 and qwen2-vl through ``ContinuousEngine`` on the kernels and on
+    the plain path (a stream of 6 requests, prompts of 5-16 tokens, up to
+    24 new tokens), mamba2 also with chunks of 4; SeamlessM4T through
+    ``ServingEngine`` with seeded frames (4 prompts, 12 frames each), on
+    the kernels and on the plain path. Gates: kernel streams equal plain
+    ones, mamba2's chunked stream its one-shot stream."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import (ContinuousEngine, EngineConfig,
+                                     Request, ServingEngine)
+    out = {}
+    for arch in FAMILIES:
+        cfg = get_config(arch).reduced()
+        model = Model(cfg, device="cuda")
+        params = model.init(0)
+        streams = {}
+        if cfg.is_encoder_decoder:
+            frames = np.random.default_rng(3).standard_normal(
+                (4, 12, cfg.frontend_dim), dtype=np.float32)
+            for kernels in (True, False):
+                reqs = [Request(prompt=[i + 1, i + 2, i + 3],
+                                max_new_tokens=n)
+                        for i, n in enumerate((20, 3, 12, 6))]
+                ServingEngine(model, params, batch_slots=4, cache_cap=64,
+                              kernels=kernels).serve(reqs, frames=frames)
+                streams["static", kernels] = [r.out_tokens for r in reqs]
+            runs = ("static",)
+        else:
+            runs = {"one_shot": {}}
+            if cfg.family == "ssm":
+                runs["chunk4"] = {"prefill_chunk": 4}
+            for name, kw in runs.items():
+                for kernels in (True, False):
+                    eng = ContinuousEngine(
+                        model, params, batch_slots=3, cache_cap=64,
+                        config=EngineConfig(kernels=kernels, **kw))
+                    reqs = _stream(cfg, 6, 5, 16, 4, 24, seed=1)
+                    eng.serve(reqs)
+                    streams[name, kernels] = [list(r.out_tokens)
+                                              for r in reqs]
+        out[arch] = {
+            "kernel_equals_plain": all(streams[n, True] == streams[n, False]
+                                       for n in runs),
+            "chunked_equals_one_shot": (streams["chunk4", True]
+                                        == streams["one_shot", True]
+                                        if "chunk4" in runs else None)}
+    emit("reference", archs=list(FAMILIES), families=out)
+    bad = {a: v for a, v in out.items() if False in v.values()}
+    require(not bad, "reference", f"reduced family streams differ: {bad}")
 
 
 def _reference_colocated(cfg, model):
@@ -2054,6 +2131,8 @@ def _attn_tally():
         return out
 
     def observed_block(p, x, **kw):
+        if kw["cache"] is None:                 # an encoder layer
+            return block(p, x, **kw)
         cap, window = kw["cache"]["k"].shape[1], kw.get("window")
         mode = kw.get("mode", "prefill")
         if mode == "prefill" and kw.get("length") is None and cap < x.shape[1]:
@@ -2072,25 +2151,32 @@ def _attn_tally():
     t["ring_decode"] = int(torch.stack(wraps).sum()) if wraps else 0
 
 
+def _attn_layers(cfg) -> int:
+    """Decoder layers with GQA self-attention (every layer but Mamba2's)."""
+    return sum(kind != "M" for kind in cfg.layer_kinds())
+
+
 def _attn_shapes(cfg, cap: int, steps: int):
     """``decode_attn``'s launches by (H, S) in ``steps`` decode steps of
-    ``cfg``'s stack over a cache of ``cap``: one per layer, at the layer
-    cache's capacity (``transformer.entry_capacity``)."""
+    ``cfg``'s stack over a cache of ``cap``: one per attention layer, at
+    the layer cache's capacity (``transformer.entry_capacity``)."""
     from repro_torch.models import transformer as tt
     want = collections.Counter()
     for kind in cfg.layer_kinds():
-        want[(cfg.n_heads, tt.entry_capacity(kind, cfg, cap))] += steps
+        if kind != "M":
+            want[(cfg.n_heads, tt.entry_capacity(kind, cfg, cap))] += steps
     return want
 
 
 def _peak_gate(run, peak_gb, params, *held):
     """The dense runs' memory gate: ``peak_gb`` (the peak beyond what was
     allocated before the model was made) within 2 GB of ``params``' weights
-    and the caches of ``held`` ((model, cap) pairs). Returns both sides,
-    and the peak over the weights alone."""
+    and the caches of ``held`` ((model, cap) pairs, or (model, cap,
+    src_len) for an encoder-decoder's cross K/V). Returns both sides, and
+    the peak over the weights alone."""
     weights = _nbytes(params) / 1e9
-    held_gb = weights + sum(_cache_bytes(m, SLOTS, cap)
-                            for m, cap in held) / 1e9
+    held_gb = weights + sum(_cache_bytes(m, SLOTS, *caps)
+                            for m, *caps in held) / 1e9
     require(peak_gb <= held_gb + 2.0, run, f"peak {peak_gb} GB beyond the "
             f"other models', weights + caches {held_gb} GB + 2 GB allowed")
     return {"weights_and_cache_GB": held_gb,
@@ -2098,11 +2184,13 @@ def _peak_gate(run, peak_gb, params, *held):
             "peak_over_weights_GB": peak_gb - weights}
 
 
-def _cache_bytes(model, batch: int, cap: int) -> int:
-    """Bytes of ``model``'s per-slot cache (rings included), from its
-    shapes (made on the meta device: nothing is allocated)."""
+def _cache_bytes(model, batch: int, cap: int, src_len: int = 0) -> int:
+    """Bytes of ``model``'s per-slot cache (rings, SSM state and cross K/V
+    of ``src_len`` positions included), from its shapes (made on the meta
+    device: nothing is allocated)."""
     from repro_torch.models import transformer as tt
-    cache = tt.init_cache(model.cfg, batch, cap, device="meta")
+    cache = tt.init_cache(model.cfg, batch, cap, src_len=src_len,
+                          device="meta")
     return sum(t.numel() * t.element_size() for t in tt.cache_leaves(cache))
 
 
@@ -2143,7 +2231,8 @@ def _attn_check(call, flush):
 def _dense_run(phase, model, params, cap, config, reqs, other_gb):
     """One stream through ``ContinuousEngine`` (after a one-request
     warm-up). Gates: every request complete, exact launch counts
-    (``decode_attn`` once per layer and decode step, ``moe_gmm`` never),
+    (``decode_attn`` once per attention layer and decode step,
+    ``moe_gmm`` never),
     ``decode_attn``'s launches by shape as each layer's cache gives them),
     finite logits, the peak beyond what was allocated before the model
     (``other_gb``) within 2 GB of its weights and cache (``_peak_gate``).
@@ -2161,8 +2250,8 @@ def _dense_run(phase, model, params, cap, config, reqs, other_gb):
             phase, "a request did not get all its tokens")
     require(eng.num_pending == 0, phase,
             f"{eng.num_pending} prefills left in flight")
-    _check_launches(phase, launches, calls, attn_layers=model.cfg.n_layers,
-                    moe_layers=0)
+    _check_launches(phase, launches, calls,
+                    attn_layers=_attn_layers(model.cfg), moe_layers=0)
     want = _attn_shapes(model.cfg, cap, calls["decode_steps"])
     require(tally["shapes"] == want, phase, f"decode_attn launches by "
             f"(H, S) {dict(tally['shapes'])} != expected {dict(want)}")
@@ -2425,6 +2514,289 @@ def _colocated_dense(phase, moe_model, moe_params, moe_streams, model,
                                        if h == moe_cfg.n_heads)}
 
 
+FAMILIES = ("mamba2-1.3b", "zamba2-7b", "qwen2-vl-7b",
+            "seamless-m4t-large-v2")
+
+
+@contextlib.contextmanager
+def _logits_finite():
+    """Whether every forward's logits were finite while the block runs (one
+    device flag per call, read once when the block ends)."""
+    import torch
+    from repro_torch.models import transformer as tt
+    flags, fwd = [], tt.forward
+
+    def checked(*args, **kw):
+        out = fwd(*args, **kw)
+        flags.append(torch.isfinite(out[0]).all())
+        return out
+    tt.forward = checked
+    seen = {}
+    try:
+        yield seen
+    finally:
+        tt.forward = fwd
+    seen["calls"] = len(flags)
+    seen["finite"] = bool(torch.stack(flags).all()) if flags else None
+
+
+def phase_serve_families(moe_cfg):
+    """The SSM, hybrid, vlm and audio families at full width and depth,
+    bf16, seeded weights, one model at a time (each freed before the next
+    is made), beside the served phi3.5-MoE (still held): mamba2-1.3b (48
+    M layers) on the serve stream one-shot, then with chunks of 64;
+    zamba2-7b (70 M layers and 11 uses of the shared block, D = 112) and
+    qwen2-vl-7b (28 layers, M-RoPE, G = 7) on the serve stream one-shot,
+    qwen2-vl also one batch-1 prefill of 256 seeded patch embeddings;
+    SeamlessM4T (24 encoder and 24 decoder layers, D = 64) through
+    ``ServingEngine``: 8 prompts of 128 tokens, frames (8, 128, 1024), 32
+    new tokens. Gates: every request complete, finite logits, exact launch
+    counts (``moe_gmm`` 0; ``decode_attn`` once per attention layer and
+    decode step, by (H, S) at the call sites), the peak within 2 GB of the
+    weights and caches (``_peak_gate``), and ``decode_attn`` within 2e-2 of
+    its plain version on each attention arch's first served layer, then
+    timed beside SDPA and its bound. Printed: the serve numbers, a profile
+    of three frozen decode steps per arch, and whether mamba2's chunked stream
+    equals its one-shot one (bf16 chunk boundaries may move an argmax: not
+    gated). Returns the ``kernels`` rows of ``decode_attn``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models import attention as tattn
+    from repro_torch.serving import EngineConfig
+    t_phase = time.perf_counter()
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    rows, tol = [], 2e-2
+    for arch in FAMILIES:
+        t_arch = time.perf_counter()
+        phase = f"serve_families[{arch}]"
+        cfg = get_config(arch)
+        other_gb = torch.cuda.memory_allocated() / 1e9
+        model = Model(cfg, device="cuda")
+        t0 = time.perf_counter()
+        params = model.init(0)
+        torch.cuda.synchronize()
+        head = {"arch": arch, "family": cfg.family, "n_layers": cfg.n_layers,
+                "attention_layers": _attn_layers(cfg),
+                "encoder_layers": cfg.n_encoder_layers,
+                "depth_cut": "full depth", "dtype": cfg.dtype,
+                "weights_GB": _nbytes(params) / 1e9,
+                "init_s": time.perf_counter() - t0, "slots": SLOTS,
+                "cache_cap": CACHE_CAP}
+        if cfg.is_encoder_decoder:
+            step, call, launched = _static_family(phase, model, params, head,
+                                                  other_gb)
+        else:
+            # The serve stream, its tokens drawn below the smaller of the
+            # two vocabularies (zamba2's 32000 is under phi3.5's 32064).
+            vcfg = dataclasses.replace(moe_cfg, vocab=min(moe_cfg.vocab,
+                                                          cfg.vocab))
+            reqs = _stream(vcfg, 10, 64, 200, 16, 64, seed=0)
+            eng, launches, numbers, tally = _dense_run(
+                phase, model, params, CACHE_CAP, EngineConfig(kernels=True),
+                reqs, other_gb)
+            emit("serve_families", ok=True, run="one_shot", **head,
+                 admission="one-shot", **numbers, launches=launches)
+            launched = collections.Counter(tally["shapes"])
+            if cfg.family == "ssm":
+                creqs = _stream(vcfg, 10, 64, 200, 16, 64, seed=0)
+                ceng, claunches, cnumbers, _ = _dense_run(
+                    phase + "[chunk64]", model, params, CACHE_CAP,
+                    EngineConfig(kernels=True, prefill_chunk=64), creqs,
+                    other_gb)
+                del ceng
+                parts = [next((i for i, (a, b) in enumerate(
+                    zip(r.out_tokens, c.out_tokens)) if a != b), None)
+                    for r, c in zip(reqs, creqs)]
+                emit("serve_families", ok=True, run="chunk64", **head,
+                     prefill_chunk=64, **cnumbers, launches=claunches,
+                     equals_one_shot=parts == [None] * len(parts),
+                     first_differing_token=parts)
+                _ssm_chunk_witness(phase, model, params)
+            if cfg.input_mode == "patches":
+                _patch_prefill(phase, model, params)
+            step = _frozen_decode(eng)
+            call = None
+            if _attn_layers(cfg):
+                calls = _calls(tattn, "decode_attn_auto", step)
+                require(len(calls) == _attn_layers(cfg), phase,
+                        f"{len(calls)} decode_attn calls in a decode step")
+                call = calls[0]
+                del calls
+        _profile(f"{arch}_decode_step", step, 3)
+        if call is not None:
+            row = _attn_check(call, flush)
+            emit("timing", name="decode_attn", arch=arch, **row)
+            require(row["max_abs_err"] <= tol, phase, f"decode_attn "
+                    f"{row['shape']}: max abs err {row['max_abs_err']}")
+            rows.append({"name": "decode_attn", "route": "cuda",
+                         "source": "src/repro_torch/kernels/csrc/"
+                                   "decode_attn.cu",
+                         "replaces": "src/repro/kernels/decode_attn.py:91",
+                         "arch": arch, "launches": sum(launched.values()),
+                         **row})
+        del model, params, step, call
+        if not cfg.is_encoder_decoder:
+            del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit("serve_families", arch=arch,
+             seconds=time.perf_counter() - t_arch)
+    emit("serve_families", seconds=time.perf_counter() - t_phase)
+    return rows
+
+
+def _ssm_chunk_witness(phase, model, params, n: int = 300,
+                       chunk: int = 64, tol: float = 1e-3):
+    """Tells rounding from a fault in the SSD scan's continuation: one
+    seeded prompt of ``n`` tokens prefilled into one slot one-shot (two
+    blocks of the config's SSD chunk) and in chunks of ``chunk`` (each
+    resuming from the slot's conv window and state), in the model's dtype
+    and in fp32 on the same weights (upcast). Prints, for each, the
+    largest gap of the last position's logits and of the final SSM leaves,
+    each over the largest magnitude, and whether the argmax agrees. Gate:
+    the fp32 logit gap within ``tol`` (a faulty continuation moves the
+    logits by about their own size; fp32 rounding by far less)."""
+    import torch
+    from repro_torch.bridge import map_tree
+    from repro_torch.models import Model
+    from repro_torch.models import transformer as tt
+    cfg, dev = model.cfg, model.device
+    toks = torch.randint(1, cfg.vocab, (1, n),
+                         generator=torch.Generator().manual_seed(7)).to(dev)
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max())
+
+    out = {}
+    for name in (cfg.dtype, "float32"):
+        if name == cfg.dtype:
+            m, p = model, params
+        else:
+            m = Model(dataclasses.replace(cfg, dtype=name), device=dev)
+            p = map_tree(lambda t: t.float() if t.is_floating_point()
+                         else t, params)
+        runs = []
+        for step in (n, chunk):
+            cache = m.init_cache(1, CACHE_CAP, per_slot_len=True)
+            for i, lo in enumerate(range(0, n, step)):
+                logits, cache = m.prefill_chunk_slot(
+                    p, {"tokens": toks[:, lo:lo + step]}, cache, 0,
+                    first=i == 0, cap=CACHE_CAP)
+            runs.append((logits[0, -1, :cfg.vocab], tt.cache_leaves(cache)))
+        (l1, s1), (l2, s2) = runs
+        out[name] = {"logit_gap": rel(l2, l1),
+                     "state_gap": max(rel(b, a) for a, b in zip(s1, s2)),
+                     "argmax_equal": int(l1.argmax()) == int(l2.argmax())}
+        del m, p, runs, cache, logits, l1, l2, s1, s2
+    emit("serve_families", run="chunk_witness", prompt=n, chunk=chunk,
+         ssd_chunk=cfg.ssm.chunk, tol=tol, **out)
+    require(out["float32"]["logit_gap"] <= tol, phase,
+            f"fp32 chunked prefill of {n} tokens differs from the one-shot "
+            f"one: {out['float32']}")
+    return out
+
+
+def _patch_prefill(phase, model, params):
+    """One batch-1 prefill of 256 seeded patch embeddings (the vision
+    stub's output, ``frontend_dim`` wide): logits finite, one row per
+    patch, of the padded-vocab width."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    emb = torch.randn((1, 256, model.cfg.frontend_dim), generator=gen,
+                      device="cuda")
+    cache = model.init_cache(1, CACHE_CAP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = model.prefill(params, {"embeds": emb}, cache)
+    finite = bool(torch.isfinite(logits).all())
+    ms = (time.perf_counter() - t0) * 1e3
+    require(finite and tuple(logits.shape) == (1, 256, model.padded_vocab),
+            phase, f"patch prefill logits {tuple(logits.shape)} "
+            f"finite={finite}")
+    emit("serve_families", arch=model.cfg.arch_id, run="patch_prefill",
+         patches=256, frontend_dim=model.cfg.frontend_dim,
+         logits_finite=finite, ms=ms)
+
+
+def _static_family(phase, model, params, head, other_gb):
+    """The encoder-decoder through ``ServingEngine`` (kernel path): 8
+    prompts of 128 tokens with seeded frames (8, 128, frontend_dim), 32
+    new tokens each (the reference launcher's convention: frames as long
+    as the prompts), after a warm-up batch. Gates: complete, finite
+    logits, exact launch counts (``decode_attn`` once per decoder layer
+    and decode step, by shape), the peak within 2 GB of the weights and
+    cache. Returns a frozen decode step over the served batch's cache
+    (prefilled again, outside the counted run), its first
+    ``decode_attn_auto`` call and the run's launches by (H, S)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.decode_attn import decode_attn
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    from repro_torch.models import attention as tattn
+    from repro_torch.serving import Request, ServingEngine
+    run = phase + "[static]"
+    cfg = model.cfg
+    rng = np.random.default_rng(5)
+    prompts = [[int(x) for x in rng.integers(1, cfg.vocab, 128)]
+               for _ in range(SLOTS)]
+    frames = rng.standard_normal((SLOTS, 128, cfg.frontend_dim),
+                                 dtype=np.float32)
+
+    def reqs():
+        return [Request(prompt=list(p), max_new_tokens=32) for p in prompts]
+    eng = ServingEngine(model, params, batch_slots=SLOTS, cache_cap=CACHE_CAP,
+                        kernels=True)
+    eng.serve([Request(prompt=p[:16], max_new_tokens=2) for p in prompts],
+              frames=frames[:, :16])
+    torch.cuda.synchronize()
+    dec0 = eng.decode_steps
+    torch.cuda.reset_peak_memory_stats()
+    moe_gmm.launches = decode_attn.launches = 0
+    t0 = time.perf_counter()
+    with _attn_tally() as tally, _logits_finite() as fin:
+        out = eng.serve(reqs(), frames=frames)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"moe_gmm": moe_gmm.launches,
+                "decode_attn": decode_attn.launches}
+    steps = eng.decode_steps - dec0
+    want = {"moe_gmm": 0, "decode_attn": steps * _attn_layers(cfg)}
+    require(launches == want, run, f"launch counts {launches} != {want}")
+    want = _attn_shapes(cfg, CACHE_CAP, steps)
+    require(tally["shapes"] == want, run, f"decode_attn launches by (H, S) "
+            f"{dict(tally['shapes'])} != expected {dict(want)}")
+    require(all(len(r.out_tokens) == 32 for r in out), run,
+            "a request did not get all its tokens")
+    require(fin["finite"] and fin["calls"] == steps + 1, run,
+            f"logits finite={fin['finite']} over {fin['calls']} calls")
+    gate = _peak_gate(run, torch.cuda.max_memory_allocated() / 1e9 - other_gb,
+                      params, (model, CACHE_CAP, frames.shape[1]))
+    tokens = sum(len(r.out_tokens) for r in out)
+    emit("serve_families", ok=True, run="static", **head, batch=SLOTS,
+         prompt_len=128, frames=list(frames.shape), max_new_tokens=32,
+         decode_steps=steps, wall_s=wall, tok_per_s=tokens / wall,
+         launches=launches, logits_finite=fin["finite"], **gate)
+    # The served batch's cache, prefilled again, for the frozen decode.
+    kmodel = eng.model
+    cache = kmodel.init_cache(SLOTS, CACHE_CAP, src_len=frames.shape[1],
+                              per_slot_len=True)
+    toks = torch.tensor(prompts, device="cuda")
+    logits, _ = kmodel.prefill(params, {
+        "tokens": toks, "frames": torch.from_numpy(frames).cuda()}, cache)
+    tok = torch.argmax(logits[:, -1:, :cfg.vocab], dim=-1)
+    frozen = torch.zeros(SLOTS, dtype=torch.bool, device="cuda")
+
+    def step():
+        lg = kmodel.decode_step(params, tok, cache, frozen)[0]
+        torch.argmax(lg[:, :, :cfg.vocab], dim=-1).cpu()
+    calls = _calls(tattn, "decode_attn_auto", step)
+    require(len(calls) == _attn_layers(cfg), run,
+            f"{len(calls)} decode_attn calls in a decode step")
+    return step, calls[0], collections.Counter(tally["shapes"])
+
+
 DS_LAYERS, DS_MOE_LAYERS = 5, 2  # DeepSeek-V3 cut: 3 dense + 2 MoE layers
 DS_SLICE = 32                    # experts per plain-version comparison
 
@@ -2674,6 +3046,7 @@ def main() -> int:
     for r in rows:
         r["launches"] += colocated_moe[r["name"]]
     rows += dense_rows
+    rows += phase_serve_families(model.cfg)
     # The phi3.5 model, its params and engines go before DeepSeek-V3's
     # ~53 GB of weights are made.
     del model, params, monitor, spec

@@ -1,32 +1,50 @@
 """Architecture registry of the port: ``get_config("<arch-id>")``.
 
-Registered: phi3.5-MoE (GQA, softmax router), DeepSeek-V3 (MLA, leading
-dense layers, sigmoid router with a shared expert) and the dense GQA
-families phi4-mini (swiglu, tied embeddings), gemma-7b (geglu, head_dim
-256), qwen3-32b (q/k-norm) and gemma3-27b (q/k-norm, geglu, ``LLLLLG``
-sliding-window layers). The reference's other architectures (M-RoPE, SSM,
-hybrid, encoder-decoder) are not ported yet and raise ``KeyError``.
+Every architecture of the reference is registered: phi3.5-MoE (GQA,
+softmax router), DeepSeek-V3 (MLA, leading dense layers, sigmoid router
+with a shared expert), the dense GQA families phi4-mini (swiglu, tied
+embeddings), gemma-7b (geglu, head_dim 256), qwen3-32b (q/k-norm) and
+gemma3-27b (q/k-norm, geglu, ``LLLLLG`` sliding-window layers), mamba2
+(SSM), zamba2 (Mamba2 blocks and one shared attention block), qwen2-vl
+(M-RoPE, patch embeddings) and SeamlessM4T (encoder-decoder, frame
+embeddings). An unknown id raises ``KeyError``.
 """
 
 from __future__ import annotations
 
-from . import (deepseek_v3_671b, gemma3_27b, gemma_7b, phi3_5_moe_42b,
-               phi4_mini_3_8b, qwen3_32b)
-from .base import MLAConfig, ModelConfig, MoEConfig, cut_depth
+from . import (deepseek_v3_671b, gemma3_27b, gemma_7b, mamba2_1_3b,
+               phi3_5_moe_42b, phi4_mini_3_8b, qwen2_vl_7b, qwen3_32b,
+               seamless_m4t_large_v2, zamba2_7b)
+from .base import MLAConfig, ModelConfig, MoEConfig, SSMConfig, cut_depth
 
 REGISTRY: dict[str, ModelConfig] = {
     m.CONFIG.arch_id: m.CONFIG
     for m in (phi3_5_moe_42b, deepseek_v3_671b, phi4_mini_3_8b, gemma_7b,
-              qwen3_32b, gemma3_27b)}
+              qwen3_32b, gemma3_27b, mamba2_1_3b, zamba2_7b, qwen2_vl_7b,
+              seamless_m4t_large_v2)}
 ARCH_IDS: tuple[str, ...] = tuple(REGISTRY)
+
+# Families served on one model's engines only: their colocation is not
+# ported (ROADMAP A4). None of them has experts, so expert parallelism and
+# replication are refused for them as for any dense model.
+SOLO_FAMILIES = ("ssm", "hybrid", "vlm", "audio")
 
 
 def get_config(arch_id: str) -> ModelConfig:
     if arch_id not in REGISTRY:
-        raise KeyError(f"arch {arch_id!r} is not ported to repro_torch yet; "
-                       f"ported: {sorted(REGISTRY)}")
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(REGISTRY)}")
     return REGISTRY[arch_id]
 
 
-__all__ = ["MLAConfig", "ModelConfig", "MoEConfig", "REGISTRY", "ARCH_IDS",
-           "cut_depth", "get_config"]
+def refuse_solo_family(cfg: ModelConfig) -> None:
+    """Raise ValueError if ``cfg`` is of a family that serves alone
+    (``SOLO_FAMILIES``): its colocation is ROADMAP A4's leftover."""
+    if cfg.family in SOLO_FAMILIES:
+        raise ValueError(
+            f"{cfg.arch_id} ({cfg.family}): colocation of the ssm, hybrid, "
+            "vlm and audio families is not ported (ROADMAP A4's leftover)")
+
+
+__all__ = ["MLAConfig", "ModelConfig", "MoEConfig", "SSMConfig", "REGISTRY",
+           "ARCH_IDS", "SOLO_FAMILIES", "cut_depth", "get_config",
+           "refuse_solo_family"]

@@ -1,11 +1,14 @@
 """Model configuration (the port's own copy of ``repro/configs/base.py``).
 
-Only what the ported decoder families read is kept: ``MoEConfig``,
-``MLAConfig``, ``ModelConfig`` with its attention (q/k-norm, sliding
-window, layer pattern), FFN and MoE fields, ``layer_kinds()``,
-``reduced()``, the smoke-test variant (<= 2 layers, d_model <= 256, <= 4
-experts, a pattern cut to ``"LG"`` with a window of at most 16, fp32), and
-``cut_depth``, the layer cut of a full-width config.
+What the ported families read is kept: ``MoEConfig``, ``MLAConfig``,
+``SSMConfig``, ``ModelConfig`` with its attention (q/k-norm, sliding
+window, layer pattern, M-RoPE sections), FFN, MoE, SSM, hybrid,
+encoder-decoder and frontend fields, ``layer_kinds()``, ``reduced()``, the
+smoke-test variant (<= 2 layers, d_model <= 256, <= 4 experts, a pattern
+cut to ``"LG"`` with a window of at most 16, a hybrid stack of 3 layers
+with period 2, SSM ``d_state <= 16``, ``head_dim 32``, ``chunk 32``, fp32),
+and ``cut_depth``, the layer cut of a full-width config. The reference's
+parameter counts and shape-skip properties are not kept.
 """
 
 from __future__ import annotations
@@ -39,9 +42,20 @@ class MLAConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 (SSD) dims."""
+    d_state: int
+    head_dim: int = 64
+    expand: int = 2
+    conv_kernel: int = 4
+    chunk: int = 128               # SSD chunk length
+    n_groups: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: Literal["dense", "moe"]
+    family: Literal["dense", "moe", "ssm", "hybrid", "vlm", "audio"]
     source: str                    # paper / model-card citation
 
     n_layers: int
@@ -55,21 +69,41 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     sliding_window: int | None = None      # window size of the L layers
     layer_pattern: str | None = None       # e.g. "LLLLLG" repeated; None=all G
+    mrope_sections: tuple[int, int, int] | None = None  # qwen2-vl M-RoPE
     mla: MLAConfig | None = None   # MLA ignores n_kv_heads and head_dim
 
     d_ff: int = 0
     act: Literal["swiglu", "geglu"] = "swiglu"
 
     moe: MoEConfig | None = None
+    ssm: SSMConfig | None = None
+    hybrid_period: int = 0         # hybrid: one shared attn block per N M blocks
+
+    n_encoder_layers: int = 0      # encoder-decoder (audio)
+
+    input_mode: Literal["text", "patches", "frames"] = "text"
+    frontend_dim: int = 0          # width of the stub frontend's embeddings
 
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"
 
+    @property
+    def is_encoder_decoder(self) -> bool:
+        return self.n_encoder_layers > 0
+
     def layer_kinds(self) -> list[str]:
         """Per-layer kind: 'G' global attention, 'L' sliding-window
         attention (the pattern repeated over the depth; a leading dense
-        layer of an MoE config is told apart by ``first_dense_layers``)."""
+        layer of an MoE config is told apart by ``first_dense_layers``),
+        'M' Mamba2, 'A' the hybrid's shared attention block (every
+        ``hybrid_period + 1``-th layer)."""
+        if self.family == "ssm":
+            return ["M"] * self.n_layers
+        if self.family == "hybrid":
+            q = self.hybrid_period + 1
+            return ["A" if (i + 1) % q == 0 else "M"
+                    for i in range(self.n_layers)]
         if self.layer_pattern:
             pat = self.layer_pattern
             return [pat[i % len(pat)] for i in range(self.n_layers)]
@@ -93,10 +127,18 @@ class ModelConfig:
             mla = MLAConfig(q_lora_rank=64, kv_lora_rank=64,
                             qk_rope_head_dim=16, qk_nope_head_dim=32,
                             v_head_dim=32)
+        ssm = None
+        if self.ssm is not None:
+            ssm = dataclasses.replace(self.ssm,
+                                      d_state=min(self.ssm.d_state, 16),
+                                      head_dim=32, chunk=32)
+        hybrid = self.family == "hybrid"
         return dataclasses.replace(
             self,
             arch_id=self.arch_id + "-reduced",
-            n_layers=min(self.n_layers, 2),
+            # A hybrid keeps 2 M layers and 1 shared-attention layer.
+            n_layers=3 if hybrid else min(self.n_layers, 2),
+            n_encoder_layers=min(self.n_encoder_layers, 2),
             d_model=min(self.d_model, 256),
             n_heads=min(self.n_heads, 4) if self.n_heads else 0,
             n_kv_heads=(max(1, min(self.n_kv_heads, 2))
@@ -107,7 +149,11 @@ class ModelConfig:
             sliding_window=(min(self.sliding_window, 16)
                             if self.sliding_window else None),
             layer_pattern="LG" if self.layer_pattern else None,
-            moe=moe, mla=mla,
+            moe=moe, mla=mla, ssm=ssm,
+            hybrid_period=2 if hybrid else 0,
+            frontend_dim=(min(self.frontend_dim, 128)
+                          if self.frontend_dim else 0),
+            mrope_sections=(8, 12, 12) if self.mrope_sections else None,
             dtype="float32",
         )
 
@@ -118,7 +164,10 @@ def cut_depth(cfg: ModelConfig, n_layers: int) -> ModelConfig:
     at least one MoE layer is left beside them. A layer pattern keeps its
     phase: the kinds are the first ``n_layers`` of the repeated pattern,
     so a multiple of its length keeps whole blocks (12 layers of gemma3
-    are 2 x ``LLLLLG``) and any other depth ends on a partial block."""
+    are 2 x ``LLLLLG``) and any other depth ends on a partial block. A
+    hybrid stack keeps its period's phase the same way (the shared block
+    stays every ``hybrid_period + 1``-th layer). An encoder-decoder cut
+    cuts the decoder's layers only: ``n_encoder_layers`` stays."""
     if n_layers < 1:
         raise ValueError(f"n_layers must be >= 1, got {n_layers}")
     moe = cfg.moe

@@ -44,8 +44,9 @@ def geometry(b: int, h: int, hkv: int, s: int, d: int, dtype) -> dict:
       ``MIN_SHARE`` positions of a full cache, at most ``MAX_SPLIT``. Each
       block carries a fixed chain of dependent steps (fill level, copies,
       merge, ticket), so fewer, larger blocks win at decode;
-    - ``lpp``: lanes per cache position, 16 bytes each (D * itemsize / 16
-      rounded up to a power of two, at most 32);
+    - ``lpp``: lanes per cache position, 16 bytes each (``chunks`` = D *
+      itemsize / 16 rounded up to a power of two, at most 32; the lanes
+      past ``chunks`` hold zeros);
     - ``tile``: positions staged in shared memory per copy round: a
       block's largest share (ceil(s / split)) where it fits in shared
       memory, with ``buffers`` 1 (the whole share in one round); else as

@@ -17,6 +17,11 @@ batch or continuous batching over a Poisson stream.
   python -m repro_torch.launch.serve --arch deepseek-v3-671b --reduced \
       --device cpu --kernels --batch 3 --cache-cap 32 --num-requests 4 \
       --arrival-rate 0.5
+  python -m repro_torch.launch.serve --arch zamba2-7b --reduced \
+      --device cpu --kernels --batch 3 --cache-cap 32 --num-requests 4 \
+      --arrival-rate 0.5 --prefill-chunk 4
+  python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 \
+      --reduced --device cpu --kernels --batch 2 --cache-cap 32
 
   python -m repro_torch.launch.serve --arch phi3.5-moe-42b-a6.6b --reduced \
       --device cpu --arrival-rate 0.5 --prefill-chunk 4 --prefill-pool 2 \
@@ -55,7 +60,13 @@ kernels (their plain PyTorch versions on ``--device cpu``). ``--n-layers``
 cuts the depth of a full-width config so its weights fit one card; it
 takes MoE layers first, so DeepSeek-V3's 3 leading dense layers stay
 (``configs.cut_depth``). DeepSeek-V3 (MLA) refuses ``--prefill-chunk``,
-as the reference does.
+as the reference does, and so does an encoder-decoder (SeamlessM4T),
+which serves the static batch only, on seeded frames of ``--prompt-len``
+positions (the reference's convention). The SSM, hybrid, vlm and audio
+families (mamba2, zamba2, qwen2-vl, SeamlessM4T) serve alone:
+``--colocate-with`` with one of them raises ValueError (ROADMAP A4's
+leftover), and ``--mesh`` refuses them as it does any model without
+experts.
 ``--trace-out BASE`` records telemetry and writes BASE.jsonl (spans and
 events) and BASE.trace.json (Chrome trace-event JSON, for Perfetto) on
 exit; ``--metrics-out PATH`` writes the final metrics snapshot as JSON.
@@ -285,14 +296,20 @@ def _serve(args, telemetry) -> int:
 
 def _serve_static(args, cfg, model, params, rng) -> int:
     """One static batch of ``--batch`` random prompts through
-    ``ServingEngine``, as the reference's default path."""
+    ``ServingEngine``, as the reference's default path; an encoder-decoder
+    gets seeded (batch, prompt_len, frontend_dim) frames beside them."""
     from repro_torch.serving import Request, ServingEngine
     eng = ServingEngine(model, params, batch_slots=args.batch,
                         cache_cap=args.cache_cap, kernels=args.kernels)
     reqs = [Request(prompt=list(rng.integers(1, cfg.vocab, args.prompt_len)),
                     max_new_tokens=args.max_new_tokens)
             for _ in range(args.batch)]
-    for i, r in enumerate(eng.serve(reqs)):
+    frames = None
+    if cfg.is_encoder_decoder:
+        frames = rng.standard_normal(
+            (args.batch, args.prompt_len, cfg.frontend_dim),
+            dtype=np.float32)
+    for i, r in enumerate(eng.serve(reqs, frames=frames)):
         print(f"req {i}: {r.out_tokens}")
     total = sum(len(r.out_tokens) for r in reqs)
     print(f"{total} tokens in {eng.decode_steps} decode steps (static "

@@ -1,5 +1,6 @@
-"""Attention blocks with prefill and decode modes (port of the GQA and MLA
-parts of ``repro/models/attention.py``).
+"""Attention blocks with train, prefill and decode modes (port of
+``repro/models/attention.py``: GQA with RoPE or M-RoPE, MLA and
+encoder-decoder cross-attention).
 
 Caches are fixed-capacity and updated IN PLACE (the reference returns a
 new cache instead). GQA caches ``{"k", "v"}`` of shape (B, cap, Hkv, D):
@@ -8,8 +9,11 @@ global layers hold ``cap`` positions, sliding-window layers a ring of
 positions, so ring slots need no re-rotation; q/k-norm, when the config
 has it, runs before RoPE). MLA (DeepSeek-V3) caches the compressed latent
 ``{"ckv", "k_rope"}`` of shapes (B, cap, kv_lora) and (B, cap, rope),
-prefills in the direct form and decodes in the absorbed form.
-Cross-attention is not ported.
+prefills in the direct form and decodes in the absorbed form. The
+cacheless "train" mode is what the encoder runs (bidirectional with
+``causal=False``). Cross-attention attends precomputed encoder K/V through
+``attention_core`` with no mask, as in the reference (no Pallas kernel
+there, so none here).
 """
 
 from __future__ import annotations
@@ -17,7 +21,8 @@ from __future__ import annotations
 import torch
 
 from ..kernels.ops import decode_attn_auto
-from .layers import _NEG_INF, apply_rope, attention_core, rmsnorm
+from .layers import (_NEG_INF, apply_mrope, apply_rope, attention_core,
+                     rmsnorm)
 
 
 def init_attn_cache(cfg, batch: int, cap: int, dtype, device) -> dict:
@@ -38,10 +43,27 @@ def _cache_write(cache_arr, new, slot):
         cache_arr[:, slot] = new
 
 
+def _rope_qk(cfg, q, k, pos, pos3):
+    """RoPE, or M-RoPE when ``cfg.mrope_sections`` is set; with ``pos3``
+    None the three M-RoPE streams all equal ``pos`` (text)."""
+    if cfg.mrope_sections is None:
+        return (apply_rope(q, pos, cfg.rope_theta),
+                apply_rope(k, pos, cfg.rope_theta))
+    if pos3 is None:
+        pos3 = pos[None].expand((3,) + tuple(pos.shape))
+    return (apply_mrope(q, pos3, cfg.rope_theta, cfg.mrope_sections),
+            apply_mrope(k, pos3, cfg.rope_theta, cfg.mrope_sections))
+
+
 def attn_block(p, x, *, cfg, pos, cache, length=None, mode="prefill",
-               kernels=None, row_mask=None, window=None):
+               kernels=None, row_mask=None, window=None, pos3=None,
+               causal=True):
     """GQA attention. x: (B, S, d); pos: (B, S) absolute positions.
     ``window``: the sliding window of an L layer (None for G layers).
+    ``pos3``: (3, B, S) M-RoPE position streams (None: all equal ``pos``).
+
+    mode "train": no cache (``cache`` is None); causal, or bidirectional
+    with ``causal=False`` (the encoder's layers).
 
     mode "prefill" with ``length=None``: a fresh one-shot prefill; it
     attends its own keys (causal, within the window) and writes them to
@@ -69,10 +91,12 @@ def attn_block(p, x, *, cfg, pos, cache, length=None, mode="prefill",
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k = apply_rope(k, pos, cfg.rope_theta)
+    q, k = _rope_qk(cfg, q, k, pos, pos3)
 
-    if mode == "prefill" and length is None:
+    if mode == "train":
+        out = attention_core(q, k, v, causal_offset=0 if causal else None,
+                             valid_len=None, window=window)
+    elif mode == "prefill" and length is None:
         cap = cache["k"].shape[1]
         out = attention_core(q, k, v, causal_offset=0, valid_len=None,
                              window=window)
@@ -121,7 +145,8 @@ def attn_block(p, x, *, cfg, pos, cache, length=None, mode="prefill",
                                  causal_offset=None, valid_len=valid)
         _restore_frozen(cache, old, row_mask, slot)
     else:
-        raise ValueError(f"mode {mode!r} is not ported (prefill | decode)")
+        raise ValueError(f"mode {mode!r} is not one of train, prefill, "
+                         "decode")
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
@@ -246,3 +271,22 @@ def mla_block(p, x, *, cfg, pos, cache, length=None, mode="prefill",
     else:
         raise ValueError(f"mode {mode!r} is not ported (prefill | decode)")
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+def cross_attn_block(p, x, enc_kv):
+    """Decoder cross-attention over precomputed encoder K/V
+    ``{"k", "v"}`` (B, S_src, Hkv, D), every source position visible."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    out = attention_core(q, enc_kv["k"], enc_kv["v"], causal_offset=None,
+                         valid_len=None)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def encode_cross_kv(p, enc_out):
+    """Cross-attention K/V of the encoder output (once per request)."""
+    return {"k": torch.einsum("bsd,dhk->bshk", enc_out, p["wk"]),
+            "v": torch.einsum("bsd,dhk->bshk", enc_out, p["wv"])}

@@ -90,6 +90,24 @@ def apply_rope(x, pos, theta: float):
     return out.to(x.dtype)
 
 
+def apply_mrope(x, pos3, theta: float, sections: tuple[int, int, int]):
+    """Qwen2-VL multimodal RoPE. x: (..., S, H, D); pos3: (3, ..., S)
+    temporal / height / width position ids. The D/2 frequency slots are
+    split into three sections, each rotated by its own position stream
+    (all three equal for text, which makes this ``apply_rope``)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                 # (D/2,)
+    sec = torch.cat([torch.full((s,), i, dtype=torch.long, device=x.device)
+                     for i, s in enumerate(sections)])     # (D/2,) in {0,1,2}
+    pos_sel = torch.movedim(pos3, 0, -1)                   # (..., S, 3)
+    pos_per_slot = pos_sel[..., sec]                       # (..., S, D/2)
+    angles = (pos_per_slot.float() * freqs)[..., None, :]  # (..., S, 1, D/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 def _repeat_kv(k, n_rep: int):
     if n_rep == 1:
         return k

@@ -54,9 +54,12 @@ class Model:
         kc = kernels if isinstance(kernels, KernelConfig) else KernelConfig()
         return dataclasses.replace(self, kernels=kc)
 
-    def init_cache(self, batch: int, cap: int, per_slot_len: bool = False):
-        return tf.init_cache(self.cfg, batch, cap, per_slot_len=per_slot_len,
-                             device=self.device)
+    def init_cache(self, batch: int, cap: int, src_len: int = 0,
+                   per_slot_len: bool = False):
+        """``src_len``: the source positions of an encoder-decoder's cross
+        K/V (0 for every other family)."""
+        return tf.init_cache(self.cfg, batch, cap, src_len=src_len,
+                             per_slot_len=per_slot_len, device=self.device)
 
     @property
     def padded_vocab(self) -> int:
@@ -65,15 +68,23 @@ class Model:
     # -- serving -----------------------------------------------------------
     def prefill(self, params, inputs, cache, collect_moe_stats: bool = False,
                 continuation: bool = False):
-        """inputs: {"tokens": (B, S)}. A fresh prefill from position 0, or
-        with ``continuation=True`` one that resumes at the cache's fill
-        level (a scalar, or a (B,) vector: each row at its own offset), so
-        a prompt absorbed chunk by chunk equals a one-shot prefill. The
-        cache is written in place. Returns (logits, cache), plus the
-        (n_moe_layers, B, S, E) per-position routing counts when
+        """inputs: {"tokens": (B, S)} | {"embeds": (B, S, frontend_dim)}
+        (patch embeddings of a vlm) | {"frames": (B, S_src,
+        frontend_dim), "tokens"} (an encoder-decoder: the encoder runs
+        over the frames, and the decoder's cross K/V are written into the
+        cache, which must hold S_src source positions). A fresh prefill
+        from position 0, or with ``continuation=True`` one that resumes at
+        the cache's fill level (a scalar, or a (B,) vector: each row at its
+        own offset), so a prompt absorbed chunk by chunk equals a one-shot
+        prefill. The cache is written in place. Returns (logits, cache),
+        plus the (n_moe_layers, B, S, E) per-position routing counts when
         ``collect_moe_stats`` (mask left-pad positions before
         aggregating)."""
-        out = tf.forward(params, self.cfg, tokens=inputs["tokens"],
+        enc_out = None
+        if self.cfg.is_encoder_decoder:
+            enc_out = tf.encode(params, self.cfg, inputs["frames"])
+        out = tf.forward(params, self.cfg, tokens=inputs.get("tokens"),
+                         embeds=inputs.get("embeds"), enc_out=enc_out,
                          mode="prefill", cache=cache, kernels=self.kernels,
                          continuation=continuation,
                          collect_moe_stats=collect_moe_stats,
@@ -132,12 +143,14 @@ class Model:
         from position 0: the row ends up as the reference's fresh zero
         batch-1 cache would after the merge, so nothing of the slot's
         previous occupant survives. Later chunks resume at the row's
-        recorded fill level. Between chunks the engine freezes the row
-        against decode writes (``decode_step(row_mask=...)``). ``cap`` is
-        the cache capacity, as in the reference (it sizes the fresh cache
-        there; here it must match the shared cache's, rings included).
-        Returns (logits, cache), plus the chunk's (n_moe_layers, 1, C, E)
-        routing counts when ``collect_moe_stats``."""
+        recorded fill level. Zeroing the row is also what keeps an SSM
+        slot's conv window and state from leaking into its next request.
+        Between chunks the engine freezes the row against decode writes
+        (``decode_step(row_mask=...)``). ``cap`` is the cache capacity, as
+        in the reference (it sizes the fresh cache there; here it must
+        match the shared cache's, rings included). Returns (logits,
+        cache), plus the chunk's (n_moe_layers, 1, C, E) routing counts
+        when ``collect_moe_stats``."""
         tf.check_capacity(self.cfg, cache, cap)
         sub = tf.slice_cache_slot(cache, slot)
         if first:
@@ -157,14 +170,14 @@ class Model:
         """Longest (padded) prompt absorbable in chunks: ``None`` when
         unbounded, 0 when the arch cannot chunk at all. MLA is 0, as in
         the reference: its prefill writes the latent cache from offset 0
-        only. A sliding-window ring continues exactly while the prompt
+        only; so is an encoder-decoder (its encoder would re-run per
+        chunk). A sliding-window ring continues exactly while the prompt
         stays inside it (a prompt that wraps it would lose slot identity
         mid-prefill), so a stack with L layers is bounded by the ring,
-        ``transformer.entry_capacity("L", ...)``. Global GQA caches continue
-        without bound. (The reference's encoder-decoder bound, 0, comes
-        with a layer kind the port does not have.)"""
+        ``transformer.entry_capacity("L", ...)``. SSM state and global GQA
+        caches continue without bound."""
         cfg = self.cfg
-        if cfg.mla is not None:
+        if cfg.mla is not None or cfg.is_encoder_decoder:
             return 0
         if any(k == "L" for seg in tf.segments_of(cfg) for k in seg.kinds):
             return tf.entry_capacity("L", cfg, cache_cap)

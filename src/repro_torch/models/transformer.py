@@ -1,4 +1,4 @@
-"""Decoder stack of the MoE and dense decoder families (port of
+"""Decoder stack, encoder and hybrid stack of every family (port of
 ``repro/models/transformer.py``).
 
 Layers are grouped into segments as in the reference, and params and caches
@@ -6,13 +6,20 @@ are stacked per segment: every leaf of a segment's per-position dict has a
 leading ``count`` axis. The reference's ``lax.scan`` over that axis is a
 Python loop over the stacked layers here.
 
-Layer kinds ported: G (global attention + dense FFN), L (sliding-window
+Layer kinds: G (global attention + dense FFN), L (sliding-window
 attention + dense FFN: gemma3's ``LLLLLG`` pattern; its cache is a ring of
 ``min(cap, sliding_window)`` positions), D (attention + dense FFN of
 ``dense_d_ff``: an MoE config's leading dense layers, DeepSeek-V3's first
-three) and E (attention + MoE FFN, with its shared expert when the config
-has one). Attention is GQA (with q/k-norm leaves when ``cfg.qk_norm``), or
-MLA when ``cfg.mla`` is set: then every layer's cache holds the latent
+three), E (attention + MoE FFN, with its shared expert when the config
+has one), M (Mamba2, ``models.ssm``; its cache is the conv window and the
+SSD state), A (zamba2's shared attention + FFN block: one parameter set,
+``params["shared"]``, an empty dict at the A position of its segment, and
+a KV cache of its own per use), C (a decoder layer with cross-attention
+over the encoder output; its cache holds the self-attention ``k``/``v``
+and the cross ``xk``/``xv`` of ``src_len`` source positions) and B (the
+encoder's bidirectional layers, ``encode``). Attention is GQA (with
+q/k-norm leaves when ``cfg.qk_norm``, M-RoPE when ``cfg.mrope_sections``),
+or MLA when ``cfg.mla`` is set: then every layer's cache holds the latent
 ``{"ckv", "k_rope"}`` in place of ``{"k", "v"}``. Caches are updated in
 place.
 """
@@ -24,6 +31,7 @@ import dataclasses
 import torch
 
 from . import attention as attn_mod
+from . import ssm as ssm_mod
 from .layers import ffn_apply, rmsnorm
 from .moe import moe_apply
 
@@ -37,11 +45,21 @@ class Segment:
 
 
 def segments_of(cfg) -> list[Segment]:
-    """Segment decomposition of the layer stack (G, L, D and E kinds): a
-    layer pattern is one segment of ``n // len(pattern)`` blocks, plus a
-    one-block remainder segment of the pattern's first ``n % len``
-    kinds."""
+    """Decoder-side segment decomposition of the layer stack: a layer
+    pattern (or a hybrid's ``M...MA`` period) is one segment of
+    ``n // len`` blocks, plus a one-block remainder segment of its first
+    ``n % len`` kinds; an encoder-decoder's decoder is C layers."""
     n = cfg.n_layers
+    if cfg.is_encoder_decoder:
+        return [Segment(("C",), n)]
+    if cfg.family == "ssm":
+        return [Segment(("M",), n)]
+    if cfg.family == "hybrid":
+        q = cfg.hybrid_period + 1
+        segs = [Segment(("M",) * cfg.hybrid_period + ("A",), n // q)]
+        if n % q:
+            segs.append(Segment(("M",) * (n % q), 1))
+        return segs
     if cfg.moe is not None and cfg.moe.first_dense_layers:
         k = cfg.moe.first_dense_layers
         return [Segment(("D",), k), Segment(("E",), n - k)]
@@ -121,31 +139,43 @@ def _attn(n, cfg, dtype, device, gen) -> dict:
                       dtype, device, gen)}
 
 
+def _init_layer(kind: str, n: int, cfg, dtype, device, gen) -> dict:
+    """One segment position's leaves, stacked over ``n`` layers: the
+    reference's ``_init_layer`` of ``kind`` under its ``vmap``."""
+    d = cfg.d_model
+    if kind == "M":
+        return {"ln": torch.zeros((n, d), dtype=dtype, device=device),
+                "mamba": ssm_mod.init_mamba(n, cfg, dtype, device, gen)}
+    if kind == "A":
+        return {}                       # the shared block's params are used
+    p = {"ln1": torch.zeros((n, d), dtype=dtype, device=device),
+         "attn": _attn(n, cfg, dtype, device, gen),
+         "ln2": torch.zeros((n, d), dtype=dtype, device=device)}
+    if kind == "E":
+        m = cfg.moe
+        e, f = m.n_experts, m.d_ff
+        p["moe"] = {
+            "router": _normal((n, d, e), d ** -0.5, torch.float32,
+                              device, gen),
+            "experts": {
+                "w_gate": _normal((n, e, d, f), d ** -0.5, dtype, device, gen),
+                "w_up": _normal((n, e, d, f), d ** -0.5, dtype, device, gen),
+                "w_down": _normal((n, e, f, d), f ** -0.5, dtype, device, gen)}}
+        if m.n_shared_experts:
+            p["moe"]["shared"] = _ffn(n, d, m.shared_d_ff or f, dtype,
+                                      device, gen)
+    else:
+        f = cfg.moe.dense_d_ff if kind == "D" else cfg.d_ff
+        p["ffn"] = _ffn(n, d, f, dtype, device, gen)
+    if kind == "C":
+        p["ln_x"] = torch.zeros((n, d), dtype=dtype, device=device)
+        p["xattn"] = _attn(n, cfg, dtype, device, gen)
+    return p
+
+
 def _init_segment(seg: Segment, cfg, dtype, device, gen) -> tuple:
-    n, d = seg.count, cfg.d_model
-    out = []
-    for kind in seg.kinds:
-        p = {"ln1": torch.zeros((n, d), dtype=dtype, device=device),
-             "attn": _attn(n, cfg, dtype, device, gen),
-             "ln2": torch.zeros((n, d), dtype=dtype, device=device)}
-        if kind == "E":
-            m = cfg.moe
-            e, f = m.n_experts, m.d_ff
-            p["moe"] = {
-                "router": _normal((n, d, e), d ** -0.5, torch.float32,
-                                  device, gen),
-                "experts": {
-                    "w_gate": _normal((n, e, d, f), d ** -0.5, dtype, device, gen),
-                    "w_up": _normal((n, e, d, f), d ** -0.5, dtype, device, gen),
-                    "w_down": _normal((n, e, f, d), f ** -0.5, dtype, device, gen)}}
-            if m.n_shared_experts:
-                p["moe"]["shared"] = _ffn(n, d, m.shared_d_ff or f, dtype,
-                                          device, gen)
-        else:
-            f = cfg.moe.dense_d_ff if kind == "D" else cfg.d_ff
-            p["ffn"] = _ffn(n, d, f, dtype, device, gen)
-        out.append(p)
-    return tuple(out)
+    return tuple(_init_layer(kind, seg.count, cfg, dtype, device, gen)
+                 for kind in seg.kinds)
 
 
 def init_params(cfg, seed: int = 0, device="cpu") -> dict:
@@ -161,6 +191,18 @@ def init_params(cfg, seed: int = 0, device="cpu") -> dict:
                            for seg in segments_of(cfg))}
     if not cfg.tie_embeddings:
         p["lm_head"] = _normal((d, vp), d ** -0.5, dtype, device, gen)
+    if cfg.family == "hybrid":          # zamba2's one shared block
+        p["shared"] = _index_tree(
+            _init_layer("G", 1, cfg, dtype, device, gen), 0)
+    if cfg.is_encoder_decoder:
+        enc = Segment(("B",), cfg.n_encoder_layers)
+        p["encoder"] = {
+            "segments": (_init_segment(enc, cfg, dtype, device, gen),),
+            "final_norm": torch.zeros((d,), dtype=dtype, device=device)}
+    if cfg.input_mode != "text":
+        p["frontend_proj"] = _normal((cfg.frontend_dim, d),
+                                     cfg.frontend_dim ** -0.5, dtype,
+                                     device, gen)
     return p
 
 
@@ -174,37 +216,56 @@ def entry_capacity(kind: str, cfg, cap: int) -> int:
     return min(cap, cfg.sliding_window) if kind == "L" else cap
 
 
-def init_cache(cfg, batch: int, cap: int, dtype=None, per_slot_len=False,
-               device="cpu") -> dict:
-    """``{"len", "segments"}`` with leaves (count, batch, cap_l, ...): GQA
-    ``{"k", "v"}`` (..., Hkv, D), or MLA ``{"ckv", "k_rope"}`` (...,
-    kv_lora) and (..., rope) when ``cfg.mla`` is set. ``cap_l`` is
-    ``entry_capacity``: ``cap``, or an L layer's ring. ``per_slot_len=True``
-    makes ``len`` a (batch,) vector: each row (decode slot) tracks its own
-    sequence length."""
+def _init_entry(kind: str, cfg, batch: int, cap: int, src_len: int, dtype,
+                device) -> dict:
+    """One layer's cache (the reference's ``_init_layer_cache``)."""
+    if kind == "M":
+        return ssm_mod.init_ssm_cache(cfg, batch, dtype, device)
+    if cfg.mla is not None:
+        return attn_mod.init_mla_cache(cfg, batch, cap, dtype, device)
+    entry = attn_mod.init_attn_cache(cfg, batch,
+                                     entry_capacity(kind, cfg, cap), dtype,
+                                     device)
+    if kind == "C":
+        shape = (batch, src_len, cfg.n_kv_heads, cfg.head_dim)
+        entry["xk"] = torch.zeros(shape, dtype=dtype, device=device)
+        entry["xv"] = torch.zeros(shape, dtype=dtype, device=device)
+    return entry
+
+
+def init_cache(cfg, batch: int, cap: int, src_len: int = 0, dtype=None,
+               per_slot_len=False, device="cpu") -> dict:
+    """``{"len", "segments"}`` with leaves (count, batch, ...): GQA
+    ``{"k", "v"}`` (cap_l, Hkv, D), or MLA ``{"ckv", "k_rope"}`` (cap,
+    kv_lora) and (cap, rope) when ``cfg.mla`` is set; an M layer's
+    ``{"conv", "state"}`` (K-1, conv_dim) and (H, P, N) fp32; a C layer's
+    ``k``/``v`` and the cross ``xk``/``xv`` of ``src_len`` positions.
+    ``cap_l`` is ``entry_capacity``: ``cap``, or an L layer's ring.
+    ``per_slot_len=True`` makes ``len`` a (batch,) vector: each row (decode
+    slot) tracks its own sequence length."""
     dtype = dtype or torch_dtype(cfg.dtype)
     shape_len = (batch,) if per_slot_len else ()
-    init_layer = (attn_mod.init_mla_cache if cfg.mla is not None
-                  else attn_mod.init_attn_cache)
     segs = []
     for seg in segments_of(cfg):
         segs.append(tuple(
             {name: t.expand((seg.count,) + t.shape).clone()
-             for name, t in init_layer(
-                 cfg, batch, entry_capacity(kind, cfg, cap), dtype,
-                 device).items()}
+             for name, t in _init_entry(kind, cfg, batch, cap, src_len,
+                                        dtype, device).items()}
             for kind in seg.kinds))
     return {"len": torch.zeros(shape_len, dtype=torch.int32, device=device),
             "segments": tuple(segs)}
 
 
 def check_capacity(cfg, cache, cap: int) -> None:
-    """Raise ValueError unless every entry of ``cache`` holds the positions
-    ``init_cache(cfg, ..., cap)`` gives it (rings included)."""
+    """Raise ValueError unless every attention entry of ``cache`` holds the
+    positions ``init_cache(cfg, ..., cap)`` gives it (rings included; an M
+    entry holds no positions)."""
     for seg, entries in zip(segments_of(cfg), cache["segments"]):
         for kind, entry in zip(seg.kinds, entries):
-            have = next(iter(entry.values())).shape[2]   # (count, B, cap_l)
-            want = entry_capacity(kind, cfg, cap)
+            if kind == "M":
+                continue
+            have = entry["ckv" if cfg.mla is not None else "k"].shape[2]
+            want = entry_capacity(kind, cfg, cap)    # (count, B, cap_l)
             if have != want:
                 raise ValueError(f"cap {cap} gives a {kind} layer {want} "
                                  f"positions; the cache holds {have}")
@@ -224,7 +285,8 @@ def merge_cache_slot(cache, sub, slot: int):
 
 
 def cache_leaves(cache):
-    """Every tensor of a cache but ``len`` (K/V or MLA latent alike)."""
+    """Every tensor of a cache but ``len`` (K/V, MLA latent, SSM state and
+    cross K/V alike)."""
     return [t for seg in cache["segments"] for e in seg for t in e.values()]
 
 
@@ -245,20 +307,57 @@ def slice_cache_slot(cache, slot: int):
 # ---------------------------------------------------------------------------
 
 def _apply_layer(kind, p, x, entry, *, cfg, kernels, mode, pos, length,
-                 row_mask, collect_stats=False, replication=None, pc=None):
+                 row_mask, collect_stats=False, replication=None, pc=None,
+                 pos3=None, shared=None, enc_out=None):
     """One layer. Returns (x, aux, counts): counts are the (B, S, E) routed
     choices of an E layer when ``collect_stats``, else None. The cache
-    entry is updated in place. ``replication``: the physical layout of the
-    MoE expert leaves (``moe.ReplicationSpec``, None = one copy each).
-    ``pc``: the expert-parallel layout of the MoE layers
-    (``layers.ParallelContext``, None = one device)."""
-    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    block = attn_mod.mla_block if cfg.mla is not None else attn_mod.attn_block
-    window = cfg.sliding_window if kind == "L" else None
-    y = block(p["attn"], h, cfg=cfg, pos=pos, cache=entry, length=length,
-              mode=mode, kernels=kernels, row_mask=row_mask, window=window)
+    entry (None in "train" mode) is updated in place. ``replication``: the
+    physical layout of the MoE expert leaves (``moe.ReplicationSpec``,
+    None = one copy each). ``pc``: the expert-parallel layout of the MoE
+    layers (``layers.ParallelContext``, None = one device). ``shared``: the
+    hybrid's shared block, which an A layer runs. ``enc_out``: the encoder
+    output a C layer's prefill attends (its decode reads the cached cross
+    K/V)."""
+    zero = x.new_zeros((), dtype=torch.float32)
+    if kind == "M":
+        h = rmsnorm(p["ln"], x, cfg.norm_eps)
+        if mode == "decode":
+            y = ssm_mod.mamba_decode(p["mamba"], h, cfg, entry, row_mask)
+        else:
+            # A prefill starts from the entry's conv window and state and
+            # writes the final ones back: a chunked continuation is the
+            # same code as a fresh prefill (whose entry is zero).
+            y = ssm_mod.mamba_block(p["mamba"], h, cfg, entry)
+        return x + y, zero, None
+    pp = shared if kind == "A" else p
+    h = rmsnorm(pp["ln1"], x, cfg.norm_eps)
+    if cfg.mla is not None:
+        y = attn_mod.mla_block(pp["attn"], h, cfg=cfg, pos=pos, cache=entry,
+                               length=length, mode=mode, kernels=kernels,
+                               row_mask=row_mask)
+    else:
+        # A C entry hands attention its self-attention K/V only, so a
+        # frozen row's restore never touches the cross K/V.
+        attn_cache = entry
+        if kind == "C" and entry is not None:
+            attn_cache = {"k": entry["k"], "v": entry["v"]}
+        y = attn_mod.attn_block(
+            pp["attn"], h, cfg=cfg, pos=pos, cache=attn_cache, length=length,
+            mode=mode, kernels=kernels, row_mask=row_mask,
+            window=cfg.sliding_window if kind == "L" else None, pos3=pos3,
+            causal=kind != "B")
     x = x + y
-    h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    if kind == "C":
+        hx = rmsnorm(p["ln_x"], x, cfg.norm_eps)
+        if mode == "decode":
+            kv = {"k": entry["xk"], "v": entry["xv"]}
+        else:            # fresh cross K/V from the encoder output
+            kv = attn_mod.encode_cross_kv(p["xattn"], enc_out)
+            if entry is not None:        # sized by init_cache(src_len=)
+                entry["xk"].copy_(kv["k"])
+                entry["xv"].copy_(kv["v"])
+        x = x + attn_mod.cross_attn_block(p["xattn"], hx, kv)
+    h2 = rmsnorm(pp["ln2"], x, cfg.norm_eps)
     counts = None
     if kind == "E" and collect_stats:
         y2, aux, counts = moe_apply(p["moe"], h2, cfg.moe, cfg.act, kernels,
@@ -268,21 +367,50 @@ def _apply_layer(kind, p, x, entry, *, cfg, kernels, mode, pos, length,
         y2, aux = moe_apply(p["moe"], h2, cfg.moe, cfg.act, kernels,
                             replication=replication, pc=pc)
     else:
-        y2, aux = ffn_apply(p["ffn"], h2, cfg.act), x.new_zeros((), dtype=torch.float32)
+        y2, aux = ffn_apply(pp["ffn"], h2, cfg.act), zero
     return x + y2, aux, counts
 
 
-def forward(params, cfg, *, tokens, mode, cache, kernels=None,
+def _frontend(params, inputs):
+    """The stub frontend's projection of patch or frame embeddings. The
+    embeddings are cast to the model dtype first (the reference's matmul
+    of float32 embeddings with bf16 weights promotes to float32; in the
+    fp32 reduced configs the two agree exactly)."""
+    proj = params["frontend_proj"]
+    return inputs.to(proj.dtype) @ proj
+
+
+def encode(params, cfg, frames):
+    """Encoder stack (audio): frames (B, S_src, frontend_dim) -> (B, S_src,
+    d): the frontend projection, the bidirectional B layers (cacheless),
+    the encoder's final norm."""
+    x = _frontend(params, frames)
+    b, s = x.shape[:2]
+    pos = torch.arange(s, device=x.device)[None].expand(b, s)
+    seg_params = params["encoder"]["segments"][0][0]
+    for blk in range(cfg.n_encoder_layers):
+        x, _, _ = _apply_layer("B", _index_tree(seg_params, blk), x, None,
+                               cfg=cfg, kernels=None, mode="train", pos=pos,
+                               length=None, row_mask=None)
+    return rmsnorm(params["encoder"]["final_norm"], x, cfg.norm_eps)
+
+
+def forward(params, cfg, *, tokens=None, mode, cache, kernels=None,
             continuation=False, row_mask=None, collect_moe_stats=False,
-            replication=None, pc=None):
+            replication=None, pc=None, embeds=None, pos3=None,
+            enc_out=None):
     """Run the decoder stack in "prefill" or "decode" mode.
 
-    prefill: tokens (B, S), a fresh prefill written from cache position 0;
+    prefill: tokens (B, S), or for a patch-input config ``embeds`` (B, S,
+    frontend_dim) through the frontend projection (no sqrt(d_model) scale,
+    as in the reference); a fresh prefill written from cache position 0;
     with ``continuation=True`` it resumes at the fill level ``cache["len"]``
     (a scalar, or a (B,) vector: each row at its own offset): positions
     and cache writes start there and queries attend the cached prefix, so
     a prompt absorbed in chunks equals a one-shot prefill.
     decode: tokens (B, 1) at per-slot positions ``cache["len"]``.
+    ``pos3``: (3, B, S) M-RoPE position streams (None: each equals the
+    positions). ``enc_out``: the encoder output (encoder-decoder prefill).
     ``row_mask`` (decode only, (B,) bool): rows where it is False keep their
     cache contents and length; their logits are computed all the same.
     Returns (logits (B, S, padded_vocab), aux_loss); ``cache`` is updated
@@ -296,8 +424,12 @@ def forward(params, cfg, *, tokens, mode, cache, kernels=None,
     MoE layers dispatch over its EP group, everything else runs replicated
     over the whole batch.
     """
-    x = params["embed"][tokens]
-    x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+    if cfg.is_encoder_decoder or cfg.input_mode == "text" or embeds is None:
+        x = params["embed"][tokens]
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
+                             device=x.device)
+    else:
+        x = _frontend(params, embeds)
     b, s = x.shape[:2]
     if mode == "decode":
         length = cache["len"]
@@ -311,6 +443,7 @@ def forward(params, cfg, *, tokens, mode, cache, kernels=None,
         length = None
         pos = torch.arange(s, device=x.device)[None].expand(b, s)
 
+    shared = params.get("shared")
     aux_total = x.new_zeros((), dtype=torch.float32)
     stats = []
     for si, seg in enumerate(segments_of(cfg)):
@@ -325,7 +458,7 @@ def forward(params, cfg, *, tokens, mode, cache, kernels=None,
                     kind, p_l, x, entry, cfg=cfg, kernels=kernels, mode=mode,
                     pos=pos, length=length, row_mask=row_mask,
                     collect_stats=collect_moe_stats, replication=replication,
-                    pc=pc)
+                    pc=pc, pos3=pos3, shared=shared, enc_out=enc_out)
                 aux_total = aux_total + aux
                 if counts is not None:
                     per_kind[i].append(counts)

@@ -34,6 +34,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..configs import refuse_solo_family
 from ..core.errors import PlanError
 from ..models import Model
 from ..models.moe import expert_leaves, expert_slabs
@@ -218,6 +219,10 @@ class ColocatedEngine:
     params_a: object
     params_b: object
 
+    def __post_init__(self):
+        for m in (self.model_a, self.model_b):
+            refuse_solo_family(m.cfg)
+
     def serve(self, prompts_a, prompts_b, max_new_tokens: int,
               cache_cap: int):
         """Greedy-decode both batches in lockstep (no left padding: every
@@ -267,6 +272,8 @@ class ColocatedContinuousEngine:
         from .engine import ContinuousEngine
         from .monitor import TrafficMonitor
 
+        for m in (model_a, model_b):
+            refuse_solo_family(m.cfg)
         config = config if config is not None else EngineConfig()
         self.config = config
         # Kernelize once, before the pools and the lockstep step exist.
@@ -471,6 +478,8 @@ class MultiTenantContinuousEngine:
                              "(use ContinuousEngine for one)")
         if len(params) != len(models):
             raise ValueError("one params tree per model required")
+        for m in models:
+            refuse_solo_family(m.cfg)
         models = [config.kernelize(m) for m in models]
         self.models = list(models)
         self.n_tenants = len(models)

@@ -158,15 +158,20 @@ class ServingEngine:
     """Static batch serving over ``batch_slots`` rows of one cache with a
     scalar fill level. ``kernels`` (True or a ``KernelConfig``) routes the
     model through the kernel path, as ``EngineConfig(kernels=...)`` does
-    for the continuous engine. ``decode_steps`` counts decode calls."""
+    for the continuous engine. ``src_len``: the source positions of an
+    encoder-decoder's cross K/V; 0 sizes them from the frames at each
+    ``serve`` (the reference's prefill replaces its empty cross cache with
+    the encoder's K/V; the port writes its cache in place, so it sizes it
+    first). ``decode_steps`` counts decode calls."""
 
     def __init__(self, model: Model, params, batch_slots: int,
-                 cache_cap: int, kernels=False):
+                 cache_cap: int, src_len: int = 0, kernels=False):
         self.model = model.with_kernels(kernels)
         self.params = params
         self.device = self.model.device
         self.batch_slots = batch_slots
         self.cache_cap = cache_cap
+        self.src_len = src_len
         self.decode_steps = 0
 
     def _pad_prompts(self, reqs: list[Request]) -> np.ndarray:
@@ -176,17 +181,29 @@ class ServingEngine:
             toks[i, plen - len(r.prompt):] = r.prompt    # left-pad with 0
         return toks
 
-    def serve(self, reqs: list[Request]) -> list[Request]:
+    def serve(self, reqs: list[Request], frames=None) -> list[Request]:
         """Run one batch of requests to completion (greedy decoding): one
         prefill, then ``max(max_new_tokens)`` decode steps over every row
         (rows past ``len(reqs)`` are all pad), each request keeping its
-        first ``max_new_tokens`` tokens."""
+        first ``max_new_tokens`` tokens. ``frames``: an encoder-decoder's
+        (batch_slots, S_src, frontend_dim) frame embeddings (numpy or a
+        tensor); with ``src_len`` set, S_src must equal it."""
         if len(reqs) > self.batch_slots:
             raise ValueError("too many requests for the batch")
         model, vocab = self.model, self.model.cfg.vocab
         toks = torch.from_numpy(self._pad_prompts(reqs)).to(self.device)
-        cache = model.init_cache(self.batch_slots, self.cache_cap)
-        logits, cache = model.prefill(self.params, {"tokens": toks}, cache)
+        inputs = {"tokens": toks}
+        src_len = self.src_len
+        if frames is not None:
+            inputs["frames"] = torch.as_tensor(frames).to(self.device)
+            n_src = inputs["frames"].shape[1]
+            if src_len and src_len != n_src:
+                raise ValueError(f"frames of {n_src} positions for an "
+                                 f"engine of src_len {src_len}")
+            src_len = n_src
+        cache = model.init_cache(self.batch_slots, self.cache_cap,
+                                 src_len=src_len)
+        logits, cache = model.prefill(self.params, inputs, cache)
         tok = torch.argmax(logits[:, -1:, :vocab], dim=-1)
         for _ in range(max(r.max_new_tokens for r in reqs)):
             host = tok.cpu().numpy()
@@ -215,6 +232,13 @@ class ContinuousEngine:
     def __init__(self, model: Model, params, batch_slots: int,
                  cache_cap: int, config: EngineConfig | None = None,
                  monitor=None):
+        # The reference's continuous engine passes no frames, so its
+        # prefill has no encoder output for an encoder-decoder's
+        # cross-attention; this one refuses such a model.
+        if model.cfg.is_encoder_decoder:
+            raise ValueError(f"{model.cfg.arch_id} is an encoder-decoder: "
+                             "ContinuousEngine takes no frames; serve it "
+                             "with ServingEngine(...).serve(reqs, frames)")
         config = config if config is not None else EngineConfig()
         self.config = config
         model = config.kernelize(model)
@@ -329,6 +353,9 @@ class ContinuousEngine:
         cur = self.model.replication
         if spec is not None and spec.is_identity:
             spec = None
+        if spec is not None and self.model.cfg.moe is None:
+            raise PlanError(f"{self.model.cfg.arch_id} has no experts to "
+                            "replicate")
         if (None if cur is None else cur.counts) == \
                 (None if spec is None else spec.counts):
             return

@@ -92,4 +92,7 @@ def test_launch_colocated_replan_on_cpu(capsys):
     assert "lockstep decode steps" in out and "replan @ step 2" in out
     with pytest.raises(KeyError):
         serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
+                    "--colocate-with", "mamba3-unknown"])
+    with pytest.raises(ValueError, match="ROADMAP A4"):
+        serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
                     "--colocate-with", "mamba2-1.3b"])

@@ -168,8 +168,9 @@ def test_bridge_round_trip_is_bit_exact(weights):
 def test_port_imports_no_jax_and_nothing_of_repro():
     """Importing the port and every submodule (the planner copy, the
     monitor, the colocated engines, health, faults, telemetry, the
-    expert-parallel modules, the DeepSeek-V3 config and the dense
-    families' configs included) leaves
+    expert-parallel modules, the DeepSeek-V3 config, the dense families'
+    configs, the SSM blocks and the SSM, hybrid, vlm and audio configs
+    included) leaves
     ``jax`` and the JAX package out of ``sys.modules``; so does importing
     chip_smoke.py."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -192,7 +193,12 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "       'repro_torch.configs.phi4_mini_3_8b',\n"
         "       'repro_torch.configs.gemma_7b',\n"
         "       'repro_torch.configs.qwen3_32b',\n"
-        "       'repro_torch.configs.gemma3_27b'}\n"
+        "       'repro_torch.configs.gemma3_27b',\n"
+        "       'repro_torch.models.ssm',\n"
+        "       'repro_torch.configs.mamba2_1_3b',\n"
+        "       'repro_torch.configs.zamba2_7b',\n"
+        "       'repro_torch.configs.qwen2_vl_7b',\n"
+        "       'repro_torch.configs.seamless_m4t_large_v2'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
@@ -206,7 +212,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 51       # every submodule walked
+    assert int(out.stdout.split()[-1]) >= 56       # every submodule walked
 
 
 def test_default_device_is_the_card():
@@ -254,7 +260,7 @@ def test_engine_config_validation():
     with pytest.raises(ValueError):
         EngineConfig(prefill_len=0)
     with pytest.raises(KeyError):
-        get_config("mamba2-1.3b")
+        get_config("mamba3-unknown")
     model = Model(get_config(ARCH).reduced(), device="cpu")
     eng = ContinuousEngine(model, model.init(0), batch_slots=2, cache_cap=16)
     from repro_torch.serving import Request
