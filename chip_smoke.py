@@ -154,6 +154,26 @@ non-zero:
    layer at the decode batch. Printed: weights GB, init s, step ms, TTFT,
    tok/s, ``moe_gmm`` ms beside its bound, a decode-step profile, EP
    decode steps in alternated rounds, the phase's seconds.
+17. train, run last, once DeepSeek-V3 is freed (under 1 GB must stay
+   allocated). Training takes the reference's plain route (dense MoE
+   dispatch, ``attention_core``; neither Pallas kernel has a backward):
+   (a) one ``make_train_step`` of each of the ten reduced archs (fp32,
+   B 2, S 16, frames for SeamlessM4T) on the card and on the CPU from the
+   same weights and batch: the loss within 1e-5 relative, every grad leaf
+   and updated param leaf within 1e-5 + 1e-4 x the leaf's largest
+   magnitude; (b) reduced phi3.5-MoE through ``train_loop`` on the card,
+   40 steps (the reference's MoE loss check: the last ce below the
+   first, aux finite), then an exact checkpoint round trip of its params
+   and optimizer state; (c) full-width phi3.5-MoE cut to 2 layers (bf16,
+   remat, fp32 moments, lr 1e-3, warmup 2) on ``SyntheticLMData`` at
+   batch 1 x 4096 (the flash branch), 10 steps: loss and aux finite at
+   every step, every grad leaf finite, every param leaf moved by step 1,
+   the peak within 4 GB of ``TRAIN_PEAK_GB``; printed: step ms, tokens/s,
+   the model FLOPs' share of 989 TF/s, forward+backward against the
+   optimizer (CUDA events) and a profile of one step; (d) ``python -m
+   repro_torch.launch.train`` in a subprocess (reduced, 3 steps, a
+   checkpoint). Gate over the phase: both kernels' launch counters
+   unmoved.
 
 Phase 4 also serves the four reduced dense archs (phi4-mini, gemma-7b,
 qwen3-32b, gemma3-27b with its LG layers and a ring of 16; fp32) through
@@ -3007,6 +3027,272 @@ def phase_serve_deepseek():
             "launches": total["moe_gmm"], **gmm["decode"]}
 
 
+# -- training ---------------------------------------------------------------
+
+TRAIN_ARCH = "phi3.5-moe-42b-a6.6b"
+TRAIN_LAYERS = 2                 # full width, 2 of 32 layers
+TRAIN_SEQ, TRAIN_STEPS = 4096, 10  # one row of the reference's train_4k
+TRAIN_PEAK_GB = 45.0             # predicted before the first run (PERF.md)
+
+
+def _train_parity(phase):
+    """(a) one train step of each reduced arch (fp32, B 2, S 16, frames for
+    an encoder-decoder) on the card and on the CPU from the same weights
+    and batch. Gates: the loss within 1e-5 relative; each grad leaf and
+    each updated param leaf within 1e-5 + 1e-4 x the CPU leaf's largest
+    magnitude. Returns the worst error over its bound per arch."""
+    import torch
+    from repro_torch.bridge import map_tree, tree_leaves
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models import Model, init_params
+    from repro_torch.training import (AdamWConfig, SyntheticLMData,
+                                      adamw_init, make_train_step)
+    from repro_torch.training.loop import loss_and_grads, make_loss_fn
+
+    def worst(got, want):
+        ratio = 0.0
+        for g, w in zip(tree_leaves(got), tree_leaves(want)):
+            w = w.float()
+            err = float((g.cpu().float() - w).abs().max())
+            ratio = max(ratio, err / (1e-5 + 1e-4 * float(w.abs().max())))
+        return ratio
+
+    out = {}
+    for arch in ARCH_IDS:
+        cfg = get_config(arch).reduced()
+        enc = cfg.is_encoder_decoder
+        batch = next(SyntheticLMData(cfg.vocab, seq_len=16, batch=2, seed=0,
+                                     frames_dim=cfg.frontend_dim if enc else 0,
+                                     frames_len=16 if enc else 0))
+        weights = init_params(cfg, seed=0, device="cpu")
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            model = Model(cfg, device=dev)
+            params = map_tree(lambda t: t.clone().to(dev), weights)
+            b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+            loss, _, grads = loss_and_grads(make_loss_fn(model), params, b)
+            opt_cfg = AdamWConfig()
+            step = make_train_step(model, opt_cfg)
+            params, _, metrics = step(params, adamw_init(params, opt_cfg), b)
+            runs[dev] = (float(loss), float(metrics["loss"]), grads, params)
+        cpu, card = runs["cpu"], runs["cuda"]
+        rel = max(abs(card[i] - cpu[i]) / abs(cpu[i]) for i in (0, 1))
+        out[arch] = {"loss_rel_err": rel,
+                     "grad_err_over_bound": worst(card[2], cpu[2]),
+                     "param_err_over_bound": worst(card[3], cpu[3])}
+        require(rel <= 1e-5 and out[arch]["grad_err_over_bound"] <= 1.0
+                and out[arch]["param_err_over_bound"] <= 1.0, phase,
+                f"{arch}: card against CPU {out[arch]}")
+    return out
+
+
+def _train_loop_reduced(phase):
+    """(b) the reference's MoE loss check on the card (reduced phi3.5-MoE,
+    40 steps, lr 1e-3, warmup 10, batch 8 x 32, data seed 1): the last ce
+    below the first, aux finite at every step; then a checkpoint round
+    trip of its params and optimizer state, exact."""
+    import shutil
+    import torch
+    from repro_torch.bridge import map_tree, tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.training import (AdamWConfig, SyntheticLMData,
+                                      checkpoint_step, restore_checkpoint,
+                                      save_checkpoint, train_loop)
+    cfg = get_config(TRAIN_ARCH).reduced()
+    data = SyntheticLMData(cfg.vocab, seq_len=32, batch=8, seed=1)
+    t0 = time.perf_counter()
+    state, hist = train_loop(Model(cfg, device="cuda"), data, steps=40,
+                             opt_cfg=AdamWConfig(lr=1e-3, warmup_steps=10),
+                             log_every=1)
+    loop_s = time.perf_counter() - t0
+    ce = [h["ce"] for h in hist]
+    require(len(hist) == 40 and ce[-1] < ce[0], phase,
+            f"reduced loop: ce {ce[0]} -> {ce[-1]} over {len(hist)} steps")
+    require(all(math.isfinite(h["aux"]) for h in hist), phase,
+            "reduced loop: a non-finite aux")
+    path = os.path.join(ROOT, "chiprun_out", "train_checkpoint")
+    tree = {"params": state.params, "opt": state.opt}
+    try:
+        save_checkpoint(path, tree, step=state.step)
+        back = restore_checkpoint(path, map_tree(torch.zeros_like, tree))
+        same = all(a.dtype == b.dtype and a.device == b.device
+                   and torch.equal(a, b) for a, b in
+                   zip(tree_leaves(tree), tree_leaves(back)))
+        require(same and checkpoint_step(path) == 40, phase,
+                "checkpoint round trip not exact")
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    return {"ce_first": ce[0], "ce_last": ce[-1], "aux_last": hist[-1]["aux"],
+            "loop_s": loop_s, "checkpoint_exact": same}
+
+
+def _train_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one step: 6 x active params x tokens (attention and
+    router projections, the top-k experts' FFNs, the LM head) plus causal
+    attention, 6 x S^2 x heads x head_dim a layer and sequence (QK and PV,
+    2 FLOPs a product, forward and backward, half the square); remat's
+    recompute and the capacity buckets' padding not counted."""
+    m = cfg.moe
+    d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    attn = 2 * d * h * hd + 2 * d * hkv * hd
+    ffn = m.top_k * 3 * d * m.d_ff + d * m.n_experts
+    active = cfg.n_layers * (attn + ffn) + d * (-(-cfg.vocab // 256) * 256)
+    return (6 * active * batch * seq
+            + cfg.n_layers * batch * 6 * seq ** 2 * h * hd)
+
+
+def _train_full(phase):
+    """(c) full-width phi3.5-MoE cut to 2 layers (bf16), remat, AdamW with
+    fp32 moments (lr 1e-3, warmup 2), ``SyntheticLMData(seed=0)`` at batch
+    1 x 4096, 10 steps through ``make_train_step``. Gates: loss and aux
+    finite at every step, every grad leaf finite, every param leaf moved
+    by step 1, the peak within 4 GB of ``TRAIN_PEAK_GB``. Printed: step
+    ms (first, median), tokens/s, the model FLOPs' share of 989 TF/s, the
+    split of a step between forward+backward and the optimizer (CUDA
+    events), then a profile of one step."""
+    import statistics
+    import torch
+    from repro_torch.bridge import tree_leaves
+    from repro_torch.configs import cut_depth, get_config
+    from repro_torch.models import Model
+    from repro_torch.training import (AdamWConfig, SyntheticLMData,
+                                      adamw_init, make_train_step)
+    from repro_torch.training import loop
+    cfg = cut_depth(get_config(TRAIN_ARCH), TRAIN_LAYERS)
+    model = Model(cfg, device="cuda")
+    data = SyntheticLMData(cfg.vocab, seq_len=TRAIN_SEQ, batch=1, seed=0)
+    batches = [{k: torch.as_tensor(v, device="cuda")
+                for k, v in next(data).items()} for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    params = model.init(0)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2)
+    opt = adamw_init(params, opt_cfg)
+    weights_gb = _nbytes(params) / 1e9
+    opt_gb = _nbytes(opt) / 1e9
+    before = [p.to("cpu", copy=True) for p in tree_leaves(params)]
+
+    # The optimizer is timed and the grads screened where the step calls
+    # it: events before and after, and every grad leaf's finiteness.
+    marks, finite = [], []
+    adamw = loop.adamw_update
+
+    def timed(params, grads, state, cfg):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        finite.append(torch.stack([torch.isfinite(g).all()
+                                   for g in tree_leaves(grads)]).all())
+        ev[1].record()
+        out = adamw(params, grads, state, cfg)
+        ev[2].record()
+        marks.append(ev)
+        return out
+
+    step = make_train_step(model, opt_cfg)
+    steps_ms, metrics, starts = [], [], []
+    loop.adamw_update = timed
+    try:
+        for i, batch in enumerate(batches):
+            start = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            params, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+            steps_ms.append((time.perf_counter() - t0) * 1e3)
+            starts.append(start)
+            metrics.append({k: float(v) for k, v in m.items()})
+            if i == 0:
+                moved = [not torch.equal(p.cpu(), b) for p, b in
+                         zip(tree_leaves(params), before)]
+                del before
+    finally:
+        loop.adamw_update = adamw
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 - base_gb
+    fwd_bwd = [s.elapsed_time(ev[0]) for s, ev in zip(starts, marks)]
+    opt_ms = [ev[1].elapsed_time(ev[2]) for ev in marks]
+    require(all(math.isfinite(x) for m in metrics for x in m.values()),
+            phase, f"non-finite loss or aux: {metrics}")
+    require(all(bool(f) for f in finite), phase, "a non-finite grad leaf")
+    require(all(moved), phase, f"{moved.count(False)} param leaves did not "
+            "move at step 1")
+    require(abs(peak_gb - TRAIN_PEAK_GB) <= 4.0, phase,
+            f"peak {peak_gb} GB, predicted {TRAIN_PEAK_GB} +- 4 GB")
+    med = statistics.median(steps_ms[1:])
+    flops = _train_flops(cfg, 1, TRAIN_SEQ)
+    out = {"arch": TRAIN_ARCH, "layers": TRAIN_LAYERS, "batch": 1,
+           "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "weights_GB": weights_gb,
+           "optimizer_state_GB": opt_gb, "peak_GB": peak_gb,
+           "predicted_peak_GB": TRAIN_PEAK_GB, "step_ms": steps_ms,
+           "first_step_ms": steps_ms[0], "median_step_ms": med,
+           "tokens_per_s": TRAIN_SEQ / med * 1e3,
+           "model_TFLOP_per_step": flops / 1e12,
+           "bf16_peak_share": flops / (med * 1e-3) / BF16_FLOP_PER_S,
+           "fwd_bwd_ms_median": statistics.median(fwd_bwd[1:]),
+           "optimizer_ms_median": statistics.median(opt_ms[1:]),
+           "ce": [m["ce"] for m in metrics], "aux": [m["aux"] for m in metrics]}
+    state = {"params": params, "opt": opt}
+
+    def one_step():
+        state["params"], state["opt"], _ = step(state["params"],
+                                                state["opt"], batches[0])
+    _profile("train_step", one_step, 1)
+    return out
+
+
+def _train_launcher(phase):
+    """(d) ``python -m repro_torch.launch.train`` on the card in a
+    subprocess (reduced phi3.5-MoE, 3 steps of 2 x 16, a checkpoint):
+    exit 0, at most 3 JSON lines, the checkpoint written at step 3."""
+    import shutil
+    from repro_torch.training import checkpoint_step
+    path = os.path.join(ROOT, "chiprun_out", "train_launch_checkpoint")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           TRAIN_ARCH, "--reduced", "--steps", "3", "--batch", "2", "--seq",
+           "16", "--checkpoint", path]
+    t0 = time.perf_counter()
+    try:
+        run = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                             timeout=300, env=dict(os.environ, PYTHONPATH=SRC))
+        rows = [ln for ln in run.stdout.splitlines() if ln.startswith("{")]
+        require(run.returncode == 0, phase,
+                f"launcher exit {run.returncode}: {run.stderr[-2000:]}")
+        require(1 <= len(rows) <= 3, phase, f"launcher printed {rows}")
+        require(checkpoint_step(path) == 3, phase, "launcher checkpoint")
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    return {"json_lines": len(rows), "last": json.loads(rows[-1]),
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_train():
+    """Training on the card, run last (after DeepSeek-V3 is freed): (a)
+    reduced parity of one train step, card against CPU, for the ten
+    archs; (b) the reduced MoE loop and a checkpoint round trip; (c) full
+    width phi3.5-MoE at 2 layers, batch 1 x 4096, 10 steps; (d) the train
+    launcher in a subprocess. Training takes the reference's plain route:
+    neither kernel's launch counter may move."""
+    from repro_torch.kernels.decode_attn import decode_attn
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    phase = "train"
+    t_phase = time.perf_counter()
+    moe_gmm.launches = decode_attn.launches = 0
+    parity = _train_parity(phase)
+    emit(phase, part="parity", archs=parity, tol="loss 1e-5 rel; leaves "
+         "1e-5 + 1e-4 max|leaf|")
+    emit(phase, part="reduced_loop", **_train_loop_reduced(phase))
+    emit(phase, part="full_width", **_train_full(phase))
+    emit(phase, part="launcher", **_train_launcher(phase))
+    launches = {"moe_gmm": moe_gmm.launches,
+                "decode_attn": decode_attn.launches}
+    require(launches == {"moe_gmm": 0, "decode_attn": 0}, phase,
+            f"training launched a kernel: {launches}")
+    emit(phase, ok=True, launches=launches,
+         seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke.py runs from the root of a checkout of the repo "
@@ -3056,6 +3342,12 @@ def main() -> int:
     require(held < 1.0, "serve_deepseek", f"{held} GB still allocated "
             "after the phi3.5 phases")
     rows.append(phase_serve_deepseek())
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 1e9
+    require(held < 1.0, "train", f"{held} GB still allocated after "
+            "serve_deepseek")
+    phase_train()
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "arch",

@@ -53,6 +53,37 @@ def to_numpy(tree):
     return map_tree(leaf_to_numpy, tree)
 
 
+def tree_leaves(tree) -> list:
+    """Every leaf in JAX's flatten order (``jax.tree.leaves``): dict keys
+    sorted, tuples and lists in order. ``leaf_paths`` walks dicts in
+    insertion order instead; the two differ once a dict's keys are not
+    inserted sorted."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(like, leaves):
+    """``like``'s structure with its leaves, in ``tree_leaves`` order,
+    replaced by ``leaves``; the inverse of ``tree_leaves``."""
+    leaves = list(leaves)
+    n = len(tree_leaves(like))
+    if len(leaves) != n:
+        raise ValueError(f"{len(leaves)} leaves for a structure of {n}")
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            out = {k: build(t[k]) for k in sorted(t)}
+            return {k: out[k] for k in t}            # keep like's key order
+        if isinstance(t, (tuple, list)):
+            return type(t)(build(v) for v in t)
+        return next(it)
+    return build(like)
+
+
 def leaf_paths(tree, prefix=()) -> list[tuple]:
     """Every leaf's path (dict keys and tuple indices), in tree order."""
     if isinstance(tree, dict):

@@ -9,11 +9,11 @@ global layers hold ``cap`` positions, sliding-window layers a ring of
 positions, so ring slots need no re-rotation; q/k-norm, when the config
 has it, runs before RoPE). MLA (DeepSeek-V3) caches the compressed latent
 ``{"ckv", "k_rope"}`` of shapes (B, cap, kv_lora) and (B, cap, rope),
-prefills in the direct form and decodes in the absorbed form. The
-cacheless "train" mode is what the encoder runs (bidirectional with
-``causal=False``). Cross-attention attends precomputed encoder K/V through
-``attention_core`` with no mask, as in the reference (no Pallas kernel
-there, so none here).
+trains and prefills in the direct form and decodes in the absorbed form.
+The cacheless "train" mode is what training and the encoder run (the
+encoder bidirectional with ``causal=False``). Cross-attention attends
+precomputed encoder K/V through ``attention_core`` with no mask, as in
+the reference (no Pallas kernel there, so none here).
 """
 
 from __future__ import annotations
@@ -206,10 +206,11 @@ def mla_block(p, x, *, cfg, pos, cache, length=None, mode="prefill",
               kernels=None, row_mask=None, window=None):
     """MLA attention. x: (B, S, d); pos: (B, S) absolute positions.
 
-    mode "prefill" (``length=None`` only): the direct form. K is each
-    head's ``k_nope`` beside the shared ``k_rope``; V is zero-padded to the
-    qk head size for ``attention_core`` and sliced back (exact). The
-    latent and the rope key land at cache positions [0, S). A prefill
+    mode "train" (no cache) and "prefill" (``length=None`` only): the
+    direct form. K is each head's ``k_nope`` beside the shared ``k_rope``;
+    V is zero-padded to the qk head size for ``attention_core`` and sliced
+    back (exact). A prefill writes the latent and the rope key at cache
+    positions [0, S); train writes nothing. A prefill
     that continues at a fill level raises ValueError: the reference writes
     at offset 0 whatever ``length`` says, and its engines refuse chunked
     prefill for MLA (``Model.chunkable_len`` is 0).
@@ -230,15 +231,14 @@ def mla_block(p, x, *, cfg, pos, cache, length=None, mode="prefill",
     scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
     q_nope, q_rope, ckv, k_rope = _mla_qkv(p, x, cfg, pos)
 
-    if mode == "prefill":
-        if length is not None:
+    if mode in ("train", "prefill"):
+        if mode == "prefill" and length is not None:
             raise ValueError("MLA prefill cannot continue at a fill level: "
                              "its latent cache is written from position 0 "
                              "(chunked prefill is refused for MLA)")
-        cap = cache["ckv"].shape[1]
-        if cap < s:
+        if mode == "prefill" and cache["ckv"].shape[1] < s:
             raise ValueError(f"prefill of {s} tokens exceeds the cache "
-                             f"capacity {cap}")
+                             f"capacity {cache['ckv'].shape[1]}")
         k_nope = torch.einsum("bsr,rhk->bshk", ckv, p["wk_b"])
         v = torch.einsum("bsr,rhk->bshk", ckv, p["wv_b"])
         h = k_nope.shape[2]
@@ -248,8 +248,9 @@ def mla_block(p, x, *, cfg, pos, cache, length=None, mode="prefill",
         v_pad = torch.nn.functional.pad(v, (0, q.shape[-1] - m.v_head_dim))
         out = attention_core(q, k, v_pad, causal_offset=0,
                              valid_len=None)[..., :m.v_head_dim]
-        cache["ckv"][:, :s] = ckv
-        cache["k_rope"][:, :s] = k_rope
+        if mode == "prefill":
+            cache["ckv"][:, :s] = ckv
+            cache["k_rope"][:, :s] = k_rope
     elif mode == "decode":
         cap = cache["ckv"].shape[1]
         slot = torch.clamp(length, max=cap - 1)
@@ -269,7 +270,8 @@ def mla_block(p, x, *, cfg, pos, cache, length=None, mode="prefill",
         out = torch.einsum("bshr,rhk->bshk", ctx_lat, p["wv_b"])   # W^UV
         _restore_frozen(cache, old, row_mask, slot)
     else:
-        raise ValueError(f"mode {mode!r} is not ported (prefill | decode)")
+        raise ValueError(f"mode {mode!r} is not one of train, prefill, "
+                         "decode")
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 

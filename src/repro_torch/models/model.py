@@ -1,4 +1,5 @@
-"""Top-level model facade (port of ``repro/models/model.py``, serving API).
+"""Top-level model facade (port of ``repro/models/model.py``): params,
+caches, training logits, serving, and ``cross_entropy``.
 
 ``Model(cfg)`` runs on the card by default and raises if there is none;
 only an explicit ``device="cpu"`` runs on the CPU. ``replication`` is the
@@ -64,6 +65,38 @@ class Model:
     @property
     def padded_vocab(self) -> int:
         return tf.padded_vocab(self.cfg)
+
+    # -- training ----------------------------------------------------------
+    def train_logits(self, params, batch, remat: bool = True):
+        """batch: {"tokens": (B, S)}, plus "frames" (B, S_src,
+        frontend_dim) for an encoder-decoder (the encoder's input; the
+        tokens are the decoder's) and optionally "embeds" (B, S,
+        frontend_dim) for a patch-input config. The cacheless forward from
+        position 0, each block under ``torch.utils.checkpoint`` when
+        ``remat``. Returns (logits (B, S, padded_vocab), aux_loss).
+
+        Training takes the reference's plain route: the dense MoE dispatch
+        and ``attention_core``. A model with ``kernels`` attached raises
+        ValueError: the CUDA ``moe_gmm`` has no backward, so its expert
+        leaves would get no grad on the card. So does an expert-parallel
+        ``pc`` (sharded training is not ported) and a ``replication``
+        (each copy of an expert would get its own grad, and the copies
+        would stop being identical)."""
+        if self.kernels is not None:
+            raise ValueError("train_logits runs the plain route: the "
+                             "kernels have no backward (use a Model "
+                             "without with_kernels)")
+        if self.pc is not None and self.pc.expert_parallel:
+            raise ValueError("expert-parallel training is not ported")
+        if self.replication is not None:
+            raise ValueError("replicated experts cannot be trained: their "
+                             "copies would drift apart")
+        enc_out = None
+        if self.cfg.is_encoder_decoder:
+            enc_out = tf.encode(params, self.cfg, batch["frames"])
+        return tf.forward(params, self.cfg, tokens=batch.get("tokens"),
+                          embeds=batch.get("embeds"), enc_out=enc_out,
+                          mode="train", remat=remat)
 
     # -- serving -----------------------------------------------------------
     def prefill(self, params, inputs, cache, collect_moe_stats: bool = False,
@@ -189,3 +222,19 @@ class Model:
         chunks (see ``chunkable_len``)."""
         lim = self.chunkable_len(cache_cap)
         return lim is None or total_len <= lim
+
+
+def cross_entropy(logits, labels, vocab: int):
+    """Mean cross-entropy over tokens (the reference's ``cross_entropy``).
+    logits (B, S, Vpad) may carry padded vocab slots, which get -1e30; the
+    log-sum-exp is taken in float32 about its detached max, and the label's
+    logit is a select-and-sum over the vocab."""
+    vpad = logits.shape[-1]
+    logits = logits.float()
+    slot = torch.arange(vpad, device=logits.device)
+    if vpad > vocab:
+        logits = torch.where(slot >= vocab, -1e30, logits)
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+    lab = torch.where(slot == labels[..., None], logits, 0.0).sum(dim=-1)
+    return (lse - lab).mean()

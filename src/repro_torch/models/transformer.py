@@ -29,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.utils.checkpoint
 
 from . import attention as attn_mod
 from . import ssm as ssm_mod
@@ -395,11 +396,18 @@ def encode(params, cfg, frames):
     return rmsnorm(params["encoder"]["final_norm"], x, cfg.norm_eps)
 
 
-def forward(params, cfg, *, tokens=None, mode, cache, kernels=None,
+def forward(params, cfg, *, tokens=None, mode, cache=None, kernels=None,
             continuation=False, row_mask=None, collect_moe_stats=False,
             replication=None, pc=None, embeds=None, pos3=None,
-            enc_out=None):
-    """Run the decoder stack in "prefill" or "decode" mode.
+            enc_out=None, remat=False):
+    """Run the decoder stack in "train", "prefill" or "decode" mode.
+
+    train: tokens (B, S) (or ``embeds``) from position 0 with no cache
+    (``cache`` is None, nothing is written). ``remat=True`` runs each block
+    (one pass over a segment position's kinds, the reference's scanned
+    ``block``) under ``torch.utils.checkpoint`` when grad is enabled: its
+    activations are recomputed in the backward instead of kept, the
+    reference's ``jax.checkpoint``; grads are the same.
 
     prefill: tokens (B, S), or for a patch-input config ``embeds`` (B, S,
     frontend_dim) through the frontend projection (no sqrt(d_model) scale,
@@ -414,7 +422,8 @@ def forward(params, cfg, *, tokens=None, mode, cache, kernels=None,
     ``row_mask`` (decode only, (B,) bool): rows where it is False keep their
     cache contents and length; their logits are computed all the same.
     Returns (logits (B, S, padded_vocab), aux_loss); ``cache`` is updated
-    in place (its ``len`` advances by S, or by 1 on unmasked decode rows).
+    in place (its ``len`` advances by S, or by 1 on unmasked decode rows;
+    train mode has no cache).
     ``collect_moe_stats=True`` appends the (n_moe_layers, B, S, E) float32
     per-position routed-choice counts, in ``moe_layer_count`` order
     (callers mask pad positions before aggregating prefill traffic).
@@ -446,22 +455,25 @@ def forward(params, cfg, *, tokens=None, mode, cache, kernels=None,
     shared = params.get("shared")
     aux_total = x.new_zeros((), dtype=torch.float32)
     stats = []
-    for si, seg in enumerate(segments_of(cfg)):
-        seg_params = params["segments"][si]
-        seg_cache = cache["segments"][si]
-        per_kind = [[] for _ in seg.kinds]      # stats order: kind-major
-        for blk in range(seg.count):
-            for i, kind in enumerate(seg.kinds):
-                p_l = _index_tree(seg_params[i], blk)
-                entry = {name: t[blk] for name, t in seg_cache[i].items()}
-                x, aux, counts = _apply_layer(
-                    kind, p_l, x, entry, cfg=cfg, kernels=kernels, mode=mode,
-                    pos=pos, length=length, row_mask=row_mask,
+    layer_kw = dict(cfg=cfg, kernels=kernels, mode=mode, pos=pos,
+                    length=length, row_mask=row_mask,
                     collect_stats=collect_moe_stats, replication=replication,
                     pc=pc, pos3=pos3, shared=shared, enc_out=enc_out)
-                aux_total = aux_total + aux
-                if counts is not None:
-                    per_kind[i].append(counts)
+    checkpointed = remat and torch.is_grad_enabled()
+    for si, seg in enumerate(segments_of(cfg)):
+        seg_params = params["segments"][si]
+        seg_cache = cache["segments"][si] if cache is not None else None
+        per_kind = [[] for _ in seg.kinds]      # stats order: kind-major
+        for blk in range(seg.count):
+            args = (seg.kinds, seg_params, seg_cache, blk, x)
+            if checkpointed:
+                x, aux, counts = torch.utils.checkpoint.checkpoint(
+                    _block, *args, use_reentrant=False, **layer_kw)
+            else:
+                x, aux, counts = _block(*args, **layer_kw)
+            aux_total = aux_total + aux
+            for i, c in counts:
+                per_kind[i].append(c)
         stats.extend(c for kind_stats in per_kind for c in kind_stats)
 
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -470,13 +482,29 @@ def forward(params, cfg, *, tokens=None, mode, cache, kernels=None,
     if mode == "decode":
         inc = (row_mask.to(torch.int32) if row_mask is not None else 1)
         cache["len"] += inc
-    else:
+    elif mode == "prefill":
         cache["len"] += s
     if collect_moe_stats:
         moe_stats = (torch.stack(stats) if stats else torch.zeros(
             (0, b, s, 0), dtype=torch.float32, device=x.device))
         return logits, aux_total, moe_stats
     return logits, aux_total
+
+
+def _block(kinds, seg_params, seg_cache, blk, x, **layer_kw):
+    """Block ``blk`` of a segment: one pass over its kinds. Returns (x, aux,
+    [(kind position, routed counts)] of its E layers when counted)."""
+    aux = x.new_zeros((), dtype=torch.float32)
+    counts = []
+    for i, kind in enumerate(kinds):
+        entry = (None if seg_cache is None else
+                 {name: t[blk] for name, t in seg_cache[i].items()})
+        x, a, c = _apply_layer(kind, _index_tree(seg_params[i], blk), x,
+                               entry, **layer_kw)
+        aux = aux + a
+        if c is not None:
+            counts.append((i, c))
+    return x, aux, counts
 
 
 def _index_tree(tree, i):

@@ -169,8 +169,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     """Importing the port and every submodule (the planner copy, the
     monitor, the colocated engines, health, faults, telemetry, the
     expert-parallel modules, the DeepSeek-V3 config, the dense families'
-    configs, the SSM blocks and the SSM, hybrid, vlm and audio configs
-    included) leaves
+    configs, the SSM blocks, the SSM, hybrid, vlm and audio configs, the
+    training modules and the train launcher included) leaves
     ``jax`` and the JAX package out of ``sys.modules``; so does importing
     chip_smoke.py."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -198,7 +198,11 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "       'repro_torch.configs.mamba2_1_3b',\n"
         "       'repro_torch.configs.zamba2_7b',\n"
         "       'repro_torch.configs.qwen2_vl_7b',\n"
-        "       'repro_torch.configs.seamless_m4t_large_v2'}\n"
+        "       'repro_torch.configs.seamless_m4t_large_v2',\n"
+        "       'repro_torch.training', 'repro_torch.training.optim',\n"
+        "       'repro_torch.training.data',\n"
+        "       'repro_torch.training.checkpoint',\n"
+        "       'repro_torch.training.loop', 'repro_torch.launch.train'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
@@ -212,7 +216,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 56       # every submodule walked
+    assert int(out.stdout.split()[-1]) >= 62       # every submodule walked
 
 
 def test_default_device_is_the_card():
