@@ -174,6 +174,23 @@ non-zero:
    repro_torch.launch.train`` in a subprocess (reduced, 3 steps, a
    checkpoint). Gate over the phase: both kernels' launch counters
    unmoved.
+18. dryrun, in three parts, each right after the phase it checks (it
+   reuses what that phase built): after serve_families, phi3.5 as the
+   serve phases run it; at the end of serve_deepseek, DeepSeek-V3 as it
+   is loaded there; at the end of train (c), its step. The predictions
+   are ``repro_torch.launch.dryrun.run_one``'s, traced on the ``meta``
+   device. Gates: (a) the argument bytes of the decode step at 8 slots
+   and cache 512 (params, a fresh cache, the tokens; phi3.5 and
+   DeepSeek-V3) and of the train step (params, AdamW state, the batch)
+   equal the live trees' bytes exactly; (b) the predicted arguments plus
+   temp within 10 % of ``max_memory_allocated`` over one plain-path call
+   of phi3.5's decode step and of the train step (less the bytes the card
+   held that are not the arguments); (c) ``FlopCounterMode`` over that
+   call on the card equals the prediction; (d) ``ep_round_bytes`` equals
+   ``LocalGroup(4, cuda).copy_bytes`` over phi3.5's decode step and a
+   1000-token prefill on the kernel path (round-robin aurora rounds, sync
+   and pipelined). Printed: the step's median ms beside the roofline
+   terms on the H100 data sheet's constants (``roofline.H100``).
 
 Phase 4 also serves the four reduced dense archs (phi4-mini, gemma-7b,
 qwen3-32b, gemma3-27b with its LG layers and a ring of 16; fp32) through
@@ -223,8 +240,6 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
-BF16_FLOP_PER_S = 989e12         # dense tensor-core bf16
 N_LAYERS = 8                     # depth cut: full widths, 8 of 32 layers
 SLOTS, CACHE_CAP = 8, 512
 # Physical expert slots asked of plan_replicated (its total_multiple): one
@@ -272,10 +287,17 @@ def time_ms(fn, flush, iters: int = 20) -> float:
     return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
+def h100():
+    """The H100 SXM's data-sheet rates, ``repro_torch.roofline.H100``:
+    ``hbm_bw`` 3.35e12 B/s, ``peak_flops`` 989e12 dense bf16 FLOP/s."""
+    from repro_torch.roofline import H100
+    return H100
+
+
 def bound(nbytes: float, flops: float):
     """(bound_ms, bound_by): the larger of bytes over HBM rate and
     operations over the bf16 tensor-core rate."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    t_bytes, t_ops = nbytes / h100().hbm_bw, flops / h100().peak_flops
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -3021,6 +3043,7 @@ def phase_serve_deepseek():
     emit(phase, decode_step_ms_rounds=rounds_ms,
          decode_step_ms_median=medians,
          seconds=time.perf_counter() - t_phase)
+    phase_dryrun_deepseek(cfg, params)
     return {"name": "moe_gmm", "route": "cuda", "arch": cfg.arch_id,
             "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
             "replaces": "src/repro/kernels/moe_gmm.py:112",
@@ -3154,8 +3177,9 @@ def _train_full(phase):
     import statistics
     import torch
     from repro_torch.bridge import tree_leaves
-    from repro_torch.configs import cut_depth, get_config
+    from repro_torch.configs import InputShape, cut_depth, get_config
     from repro_torch.models import Model
+    from repro_torch.roofline import model_flops
     from repro_torch.training import (AdamWConfig, SyntheticLMData,
                                       adamw_init, make_train_step)
     from repro_torch.training import loop
@@ -3229,7 +3253,17 @@ def _train_full(phase):
            "first_step_ms": steps_ms[0], "median_step_ms": med,
            "tokens_per_s": TRAIN_SEQ / med * 1e3,
            "model_TFLOP_per_step": flops / 1e12,
-           "bf16_peak_share": flops / (med * 1e-3) / BF16_FLOP_PER_S,
+           "bf16_peak_share": flops / (med * 1e-3) / h100().peak_flops,
+           "roofline_model_TFLOP_per_step": model_flops(
+               cfg, InputShape("train_1x4096", TRAIN_SEQ, 1, "train")) / 1e12,
+           "flop_counts": "model_TFLOP_per_step (_train_flops): 6 x (the "
+           "attention projections, router and top-k experts of each layer "
+           "and the LM head at the padded vocab) x tokens, plus causal "
+           "attention scores 6 x S^2 x H x D a layer; "
+           "roofline_model_TFLOP_per_step (roofline.model_flops): 6 x "
+           "active_param_count x tokens, which counts the embedding and "
+           "the LM head at the unpadded vocab and the norms, and no "
+           "attention scores",
            "fwd_bwd_ms_median": statistics.median(fwd_bwd[1:]),
            "optimizer_ms_median": statistics.median(opt_ms[1:]),
            "ce": [m["ce"] for m in metrics], "aux": [m["aux"] for m in metrics]}
@@ -3239,6 +3273,7 @@ def _train_full(phase):
         state["params"], state["opt"], _ = step(state["params"],
                                                 state["opt"], batches[0])
     _profile("train_step", one_step, 1)
+    phase_dryrun_train(cfg, state["params"], state["opt"], batches[0])
     return out
 
 
@@ -3293,6 +3328,195 @@ def phase_train():
          seconds=time.perf_counter() - t_phase)
 
 
+# -- dry run ----------------------------------------------------------------
+
+DRYRUN_PEAK_TOL = 0.10           # predicted peak against the card's
+
+
+def _dryrun_args(part, cfg, shape, live):
+    """(a) The dry run's argument bytes for ``cfg``'s step at ``shape``,
+    traced on ``meta`` (``launch.dryrun.run_one``), against the summed
+    bytes of the live trees ``live`` on the card: equal to the byte.
+    Returns the dry run's record."""
+    from repro_torch.launch import dryrun
+    rec = dryrun.run_one(cfg, shape)
+    pred = rec["memory"]["argument_size_in_bytes"]
+    live_b = dryrun.tree_bytes(live)
+    emit("dryrun", part=part, gate="a_argument_bytes", arch=cfg.arch_id,
+         n_layers=cfg.n_layers, shape=dataclasses.asdict(shape),
+         predicted_bytes=pred, live_bytes=live_b, equal=pred == live_b,
+         meta_trace_s=rec["trace_s"])
+    require(pred == live_b, "dryrun", f"{part}: predicted argument bytes "
+            f"{pred}, the live trees hold {live_b}")
+    return rec
+
+
+def _dryrun_step(part, rec, step, args, calls: int):
+    """(b) and (c) for one plain-path call of ``step`` on the live
+    ``args``. (b): the predicted arguments plus temp against
+    ``max_memory_allocated`` over the call (peak stats reset first),
+    less what else the card held before it (allocated bytes that are not
+    the arguments): within ``DRYRUN_PEAK_TOL``. (c): ``FlopCounterMode``
+    over a second call equals the ``meta`` trace's FLOPs. Printed: the
+    tracker's high-water mark over that call on the card, and the median
+    ms of ``calls`` more calls (CUDA events) beside the roofline terms."""
+    import statistics
+    import torch
+    from repro_torch.launch import dryrun
+    arg_b = dryrun.tree_bytes(args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = step(*args)
+    torch.cuda.synchronize()
+    del out
+    peak = torch.cuda.max_memory_allocated()
+    other = base - arg_b
+    mem = rec["memory"]
+    pred = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    measured = peak - other
+    gap = measured / pred - 1.0
+    card = dryrun.trace_step(step, args)
+    ms = []
+    for _ in range(calls):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        step(*args)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+    roof = rec["roofline"]
+    emit("dryrun", part=part, gate="b_peak_c_flops",
+         predicted_peak_GB=pred / 1e9, measured_peak_GB=measured / 1e9,
+         max_memory_allocated_GB=peak / 1e9, other_held_GB=other / 1e9,
+         peak_gap=gap, tol=DRYRUN_PEAK_TOL,
+         predicted_temp_GB=mem["temp_size_in_bytes"] / 1e9,
+         measured_temp_GB=(peak - base) / 1e9,
+         tracker_temp_on_card_GB=card["temp_bytes"] / 1e9,
+         predicted_flops=rec["cost"]["flops"], card_flops=card["flops"],
+         flops_equal=card["flops"] == rec["cost"]["flops"],
+         step_ms_median=statistics.median(ms), step_ms=ms,
+         roofline_ms={k: roof[k] * 1e3 for k in (
+             "compute_s", "memory_s", "collective_s", "memory_floor_s")},
+         dominant=roof["dominant"], useful_flop_ratio=roof[
+             "useful_flop_ratio"], constants="H100 SXM data sheet")
+    require(abs(gap) <= DRYRUN_PEAK_TOL, "dryrun", f"{part}: predicted "
+            f"peak {pred} B, the card's {measured} B ({gap:+.4f})")
+    require(card["flops"] == rec["cost"]["flops"], "dryrun", f"{part}: "
+            f"FLOPs on the card {card['flops']}, predicted "
+            f"{rec['cost']['flops']}")
+
+
+def _dryrun_ep(model, params):
+    """(d) ``ep_round_bytes`` against ``LocalGroup(4, cuda).copy_bytes``
+    over phi3.5's steps on the kernel path (``moe_gmm``, ``block_c`` 128)
+    with round-robin aurora rounds, synchronous and pipelined: the decode
+    step at the serve phase's 8 slots (a source's capacity 2, 8 rows a
+    rank) and a 1000-token prefill (capacity 40, 160 rows a rank: the
+    synchronous FFN pads them to 256). Equal, to the byte."""
+    import torch
+    from repro_torch.distributed import LocalGroup
+    from repro_torch.kernels.moe_gmm import align_capacity
+    from repro_torch.models import KernelConfig, Model, ParallelContext
+    from repro_torch.models import moe as tm
+    from repro_torch.models.transformer import moe_layer_count
+    from repro_torch.roofline import ep_round_bytes
+    cfg, m = model.cfg, model.cfg.moe
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    out = []
+    for overlap in (False, True):
+        group = LocalGroup(4, "cuda")
+        km = Model(cfg, device="cuda", kernels=KernelConfig(),
+                   pc=ParallelContext(group=group, moe_impl="aurora",
+                                      ep_overlap=overlap))
+        for kind, n_tok in (("decode", SLOTS), ("prefill", 1000)):
+            before = group.copy_bytes
+            with torch.no_grad():
+                if kind == "decode":
+                    cache = km.init_cache(SLOTS, CACHE_CAP)
+                    tok = torch.randint(0, cfg.vocab, (SLOTS, 1),
+                                        device="cuda", generator=gen)
+                    km.decode_step(params, tok, cache)
+                else:
+                    cache = km.init_cache(1, 1024)
+                    tok = torch.randint(0, cfg.vocab, (1, n_tok),
+                                        device="cuda", generator=gen)
+                    km.prefill(params, {"tokens": tok}, cache)
+            torch.cuda.synchronize()
+            got = group.copy_bytes - before
+            want = moe_layer_count(cfg) * ep_round_bytes(cfg, n_tok, 4)
+            cap = tm.capacity(-(-n_tok // 4), m.top_k, m.n_experts,
+                              m.capacity_factor)
+            rows = cap if overlap else 4 * cap
+            out.append({"run": "overlap" if overlap else "sync",
+                        "step": kind, "tokens": n_tok, "capacity": cap,
+                        "ffn_rows": rows, "ffn_pad_rows": align_capacity(
+                            rows, KernelConfig().block_c) - rows,
+                        "predicted_bytes": want, "copy_bytes": got,
+                        "equal": got == want})
+    emit("dryrun", part="phi3.5_ep", gate="d_ep_round_bytes", ranks=4,
+         moe_impl="aurora (round robin)", runs=out)
+    require(all(r["equal"] for r in out), "dryrun",
+            f"EP round bytes against the group's copies: {out}")
+
+
+def phase_dryrun_serve(model, params):
+    """The dry run held against the card on phi3.5 as the serve phases
+    run it (8 layers, bf16, 8 slots, cache 512), while it is loaded: (a)
+    the decode step's argument bytes (params, a fresh cache, the tokens);
+    (b) and (c) one plain-path decode step; (d) the EP round bytes on the
+    kernel path."""
+    import torch
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import specs
+    t0 = time.perf_counter()
+    cfg = model.cfg
+    shape = InputShape("serve_8x512", CACHE_CAP, SLOTS, "decode")
+    _, _, _, serve_step = specs.make_step_fns(cfg, device="cuda")
+    cache = model.init_cache(SLOTS, CACHE_CAP)
+    tok = torch.randint(0, cfg.vocab, (SLOTS, 1), dtype=torch.int32,
+                        device="cuda")
+    rec = _dryrun_args("phi3.5", cfg, shape, (params, tok, cache))
+    _dryrun_step("phi3.5", rec, serve_step, (params, tok, cache), 10)
+    del cache
+    _dryrun_ep(model, params)
+    emit("dryrun", part="phi3.5", ok=True,
+         seconds=time.perf_counter() - t0)
+
+
+def phase_dryrun_deepseek(cfg, params):
+    """(a) for DeepSeek-V3 as ``serve_deepseek`` loads it (3 dense + 2 MoE
+    layers, bf16): its decode step's argument bytes at 8 slots and cache
+    512 (the params, a fresh MLA cache, the tokens)."""
+    import torch
+    from repro_torch.configs import InputShape
+    from repro_torch.models import init_cache
+    t0 = time.perf_counter()
+    cache = init_cache(cfg, SLOTS, CACHE_CAP, device="cuda")
+    tok = torch.zeros((SLOTS, 1), dtype=torch.int32, device="cuda")
+    _dryrun_args("deepseek", cfg, InputShape("serve_8x512", CACHE_CAP,
+                                             SLOTS, "decode"),
+                 (params, tok, cache))
+    emit("dryrun", part="deepseek", ok=True,
+         seconds=time.perf_counter() - t0)
+
+
+def phase_dryrun_train(cfg, params, opt, batch):
+    """The dry run held against the ``train`` phase's step (phi3.5 at 2
+    layers, bf16, AdamW with fp32 moments, 1 x 4096): (a) the argument
+    bytes of the params, the optimizer state and the batch; (b) and (c)
+    one call of the dry run's own train step (``specs.make_step_fns`` on
+    the card) on those trees."""
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import specs
+    t0 = time.perf_counter()
+    shape = InputShape("train_1x4096", TRAIN_SEQ, 1, "train")
+    _, train_step, _, _ = specs.make_step_fns(cfg, device="cuda")
+    rec = _dryrun_args("train", cfg, shape, (params, opt, batch))
+    _dryrun_step("train", rec, train_step, (params, opt, batch), 2)
+    emit("dryrun", part="train", ok=True, seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke.py runs from the root of a checkout of the repo "
@@ -3333,6 +3557,7 @@ def main() -> int:
         r["launches"] += colocated_moe[r["name"]]
     rows += dense_rows
     rows += phase_serve_families(model.cfg)
+    phase_dryrun_serve(model, params)
     # The phi3.5 model, its params and engines go before DeepSeek-V3's
     # ~53 GB of weights are made.
     del model, params, monitor, spec

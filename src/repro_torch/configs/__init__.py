@@ -7,7 +7,8 @@ embeddings), gemma-7b (geglu, head_dim 256), qwen3-32b (q/k-norm) and
 gemma3-27b (q/k-norm, geglu, ``LLLLLG`` sliding-window layers), mamba2
 (SSM), zamba2 (Mamba2 blocks and one shared attention block), qwen2-vl
 (M-RoPE, patch embeddings) and SeamlessM4T (encoder-decoder, frame
-embeddings). An unknown id raises ``KeyError``.
+embeddings). An unknown id raises ``KeyError``. The four input shapes
+of the dry run are ``SHAPES`` (``configs.shapes``).
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from . import (deepseek_v3_671b, gemma3_27b, gemma_7b, mamba2_1_3b,
                phi3_5_moe_42b, phi4_mini_3_8b, qwen2_vl_7b, qwen3_32b,
                seamless_m4t_large_v2, zamba2_7b)
 from .base import MLAConfig, ModelConfig, MoEConfig, SSMConfig, cut_depth
+from .shapes import (DECODE_32K, LONG_500K, PREFILL_32K, SHAPES, TRAIN_4K,
+                     InputShape)
 
 REGISTRY: dict[str, ModelConfig] = {
     m.CONFIG.arch_id: m.CONFIG
@@ -45,6 +48,7 @@ def refuse_solo_family(cfg: ModelConfig) -> None:
             "vlm and audio families is not ported (ROADMAP A4's leftover)")
 
 
-__all__ = ["MLAConfig", "ModelConfig", "MoEConfig", "SSMConfig", "REGISTRY",
-           "ARCH_IDS", "SOLO_FAMILIES", "cut_depth", "get_config",
-           "refuse_solo_family"]
+__all__ = ["MLAConfig", "ModelConfig", "MoEConfig", "SSMConfig", "InputShape",
+           "SHAPES", "TRAIN_4K", "PREFILL_32K", "DECODE_32K", "LONG_500K",
+           "REGISTRY", "ARCH_IDS", "SOLO_FAMILIES", "cut_depth",
+           "get_config", "refuse_solo_family"]

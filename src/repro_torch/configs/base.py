@@ -7,8 +7,10 @@ encoder-decoder and frontend fields, ``layer_kinds()``, ``reduced()``, the
 smoke-test variant (<= 2 layers, d_model <= 256, <= 4 experts, a pattern
 cut to ``"LG"`` with a window of at most 16, a hybrid stack of 3 layers
 with period 2, SSM ``d_state <= 16``, ``head_dim 32``, ``chunk 32``, fp32),
-and ``cut_depth``, the layer cut of a full-width config. The reference's
-parameter counts and shape-skip properties are not kept.
+``cut_depth``, the layer cut of a full-width config, and the reference's
+sizing: ``attention_free``, ``subquadratic`` (the shape-skip rule),
+``supports_decode``, ``param_count`` and ``active_param_count``, with
+their helpers copied exactly.
 """
 
 from __future__ import annotations
@@ -92,6 +94,22 @@ class ModelConfig:
     def is_encoder_decoder(self) -> bool:
         return self.n_encoder_layers > 0
 
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def subquadratic(self) -> bool:
+        """Eligible for long_500k (the dry run's shape-skip rule)."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        # dense archs qualify only with a sliding-window layer pattern
+        return self.sliding_window is not None and self.layer_pattern is not None
+
+    @property
+    def supports_decode(self) -> bool:
+        return True  # all assigned archs have a decoder
+
     def layer_kinds(self) -> list[str]:
         """Per-layer kind: 'G' global attention, 'L' sliding-window
         attention (the pattern repeated over the depth; a leading dense
@@ -108,6 +126,14 @@ class ModelConfig:
             pat = self.layer_pattern
             return [pat[i % len(pat)] for i in range(self.n_layers)]
         return ["G"] * self.n_layers
+
+    def param_count(self) -> int:
+        """Analytic parameter count (total)."""
+        return _param_count(self, active_only=False)
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: shared + top_k experts)."""
+        return _param_count(self, active_only=True)
 
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: same family/code paths, tiny dims, fp32."""
@@ -156,6 +182,74 @@ class ModelConfig:
             mrope_sections=(8, 12, 12) if self.mrope_sections else None,
             dtype="float32",
         )
+
+
+def _ffn_params(d_model: int, d_ff: int) -> int:
+    return 3 * d_model * d_ff  # gate, up, down
+
+
+def _attn_params(cfg: ModelConfig) -> int:
+    if cfg.mla is not None:
+        m = cfg.mla
+        d = cfg.d_model
+        qk_head = m.qk_rope_head_dim + m.qk_nope_head_dim
+        p = d * m.q_lora_rank + m.q_lora_rank * cfg.n_heads * qk_head
+        p += d * (m.kv_lora_rank + m.qk_rope_head_dim)
+        p += m.kv_lora_rank * cfg.n_heads * (m.qk_nope_head_dim + m.v_head_dim)
+        p += cfg.n_heads * m.v_head_dim * d
+        return p
+    hd = cfg.head_dim
+    return (cfg.d_model * cfg.n_heads * hd          # q
+            + 2 * cfg.d_model * cfg.n_kv_heads * hd  # k, v
+            + cfg.n_heads * hd * cfg.d_model)        # o
+
+
+def _ssm_params(cfg: ModelConfig) -> int:
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    n_heads = d_inner // s.head_dim
+    conv_dim = d_inner + 2 * s.n_groups * s.d_state
+    p = cfg.d_model * (2 * d_inner + 2 * s.n_groups * s.d_state + n_heads)  # in_proj
+    p += conv_dim * s.conv_kernel                     # depthwise conv
+    p += n_heads * 2                                  # A_log, D
+    p += d_inner                                      # gated norm
+    p += d_inner * cfg.d_model                        # out_proj
+    return p
+
+
+def _param_count(cfg: ModelConfig, active_only: bool) -> int:
+    total = cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    kinds = cfg.layer_kinds()
+    for i, kind in enumerate(kinds):
+        total += 2 * cfg.d_model  # norms
+        if kind == "M":
+            total += _ssm_params(cfg)
+            continue
+        if kind == "A" and cfg.family == "hybrid":
+            continue  # counted once below (shared params)
+        total += _attn_params(cfg)
+        if cfg.moe is not None:
+            if i < cfg.moe.first_dense_layers:
+                total += _ffn_params(cfg.d_model, cfg.moe.dense_d_ff)
+            else:
+                total += cfg.d_model * cfg.moe.n_experts  # router
+                n_used = (cfg.moe.top_k if active_only else cfg.moe.n_experts)
+                total += n_used * _ffn_params(cfg.d_model, cfg.moe.d_ff)
+                if cfg.moe.n_shared_experts:
+                    total += _ffn_params(cfg.d_model,
+                                         cfg.moe.shared_d_ff or cfg.moe.d_ff)
+        else:
+            total += _ffn_params(cfg.d_model, cfg.d_ff)
+    if cfg.family == "hybrid":  # one shared attention(+ffn) block
+        total += _attn_params(cfg) + _ffn_params(cfg.d_model, cfg.d_ff)
+    if cfg.is_encoder_decoder:
+        # encoder layers: self-attn + ffn; decoder already counted has
+        # cross-attn in addition
+        total += cfg.n_encoder_layers * (
+            _attn_params(cfg) + _ffn_params(cfg.d_model, cfg.d_ff)
+            + 2 * cfg.d_model)
+        total += len(kinds) * _attn_params(cfg)  # decoder cross-attn
+    return total
 
 
 def cut_depth(cfg: ModelConfig, n_layers: int) -> ModelConfig:

@@ -39,8 +39,8 @@ def _cache_write(cache_arr, new, slot):
     if slot.ndim == 1:
         rows = torch.arange(cache_arr.shape[0], device=cache_arr.device)
         cache_arr[rows, slot] = new
-    else:
-        cache_arr[:, slot] = new
+    else:                 # a 1-element index: no host read of ``slot``
+        cache_arr[:, slot.reshape(1)] = new[:, None]
 
 
 def _rope_qk(cfg, q, k, pos, pos3):

@@ -182,9 +182,12 @@ def _init_segment(seg: Segment, cfg, dtype, device, gen) -> tuple:
 def init_params(cfg, seed: int = 0, device="cpu") -> dict:
     """Seeded random params with the reference's shapes, scales and dtypes
     (``init_params``); the numbers come from a ``torch.Generator``, so they
-    differ from JAX's for the same seed. Made directly on ``device``."""
+    differ from JAX's for the same seed. Made directly on ``device``. On
+    ``meta`` (the dry run's abstract params: shapes and dtypes, no data)
+    there is no generator and ``seed`` is unused."""
     dtype = torch_dtype(cfg.dtype)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = (None if torch.device(device).type == "meta"
+           else torch.Generator(device=device).manual_seed(seed))
     vp, d = padded_vocab(cfg), cfg.d_model
     p = {"embed": _normal((vp, d), 0.02, dtype, device, gen),
          "final_norm": torch.zeros((d,), dtype=dtype, device=device),

@@ -170,7 +170,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     monitor, the colocated engines, health, faults, telemetry, the
     expert-parallel modules, the DeepSeek-V3 config, the dense families'
     configs, the SSM blocks, the SSM, hybrid, vlm and audio configs, the
-    training modules and the train launcher included) leaves
+    training modules, the train launcher, the input shapes, the roofline,
+    the dry run's specs and its launcher included) leaves
     ``jax`` and the JAX package out of ``sys.modules``; so does importing
     chip_smoke.py."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -202,7 +203,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "       'repro_torch.training', 'repro_torch.training.optim',\n"
         "       'repro_torch.training.data',\n"
         "       'repro_torch.training.checkpoint',\n"
-        "       'repro_torch.training.loop', 'repro_torch.launch.train'}\n"
+        "       'repro_torch.training.loop', 'repro_torch.launch.train',\n"
+        "       'repro_torch.configs.shapes', 'repro_torch.roofline',\n"
+        "       'repro_torch.roofline.analysis',\n"
+        "       'repro_torch.launch.specs', 'repro_torch.launch.dryrun'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
