@@ -192,6 +192,37 @@ non-zero:
    and pipelined). Printed: the step's median ms beside the roofline
    terms on the H100 data sheet's constants (``roofline.H100``).
 
+19. serve_mesh, after the dryrun part of phi3.5 and before DeepSeek-V3
+   is made: the reference's mesh layout (``sharding.rules``) as the rank
+   program on 4 in-process ranks of the card (``ThreadMesh``, a (1, 4)
+   mesh over (data, model)), bf16 at full width, the kernels on. First
+   ``decode_attn``'s LSE output against its plain version at the per-rank
+   shapes (8, 8, 2, 128, 128), (8, 16, 2, 128, 128) and those the rank
+   program launches, (8, 32, 8, 128, 128) and (8, 64, 8, 128, 128), fill
+   levels 0 to 128 (an empty shard's LSE -inf), and with a null LSE (the
+   same output bit for bit). Then phi3.5-MoE at 8 layers (the loaded
+   params cut into 4 shards: experts over (data, model), heads 32/4, kv
+   heads 8/4, vocab over model; capacity factor 8.0 on both sides, so no
+   token is dropped by either dispatch), the same in fp32 at 2 layers,
+   and qwen3-32b at 8 of 64 layers (head-parallel dense, made and freed
+   here), each on 8 prompts of 380 tokens with a cache of 512 (128
+   positions a rank: the prompts fill ranks 0-2, and the decode's writes
+   cross into rank 3's shard): the unsharded greedy stream of 16 tokens
+   fed to the rank program, whose logits must lie within 2e-2 (qwen3)
+   or 1e-4 (fp32) of the unsharded largest logit, for phi3.5 in bf16
+   in the median over rows and steps (near-tied top-2 choices flip
+   under rounding, in the unsharded kernel and plain paths too); the rank
+   program's own greedy stream compared (first divergence printed);
+   exact launches over its two runs (``decode_attn`` per layer, rank and
+   step, ``moe_gmm`` per MoE layer, rank and call); rank 0's argument
+   bytes equal to the dry run's ``lowering_args`` on the same mesh and
+   step, to the byte; the thread transport's collective bytes over one
+   plain decode step equal to the counting transport's. The ``kernels``
+   line gains ``decode_attn`` at rank 0's shard with the LSE (beside the
+   memory-efficient SDPA kernel with ``compute_log_sumexp``) and
+   ``moe_gmm`` at rank 0's experts, each within 2e-2 of its plain
+   version.
+
 Phase 4 also serves the four reduced dense archs (phi4-mini, gemma-7b,
 qwen3-32b, gemma3-27b with its LG layers and a ring of 16; fp32) through
 the kernels and the plain path (streams identical; gemma3 also with
@@ -235,6 +266,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -3517,6 +3549,426 @@ def phase_dryrun_train(cfg, params, opt, batch):
     emit("dryrun", part="train", ok=True, seconds=time.perf_counter() - t0)
 
 
+
+# ---------------------------------------------------------------------------
+# serve_mesh: the reference's mesh layout as a rank program on the card
+# ---------------------------------------------------------------------------
+
+MESH_SHAPE = (1, 4)              # (data, model): 4 in-process ranks
+# Prompt tokens a row and greedy steps. With 128 cache positions a rank,
+# the prefill fills ranks 0 and 1 and 124 of rank 2's positions, and the
+# decode's writes (380-395) cross from rank 2's shard into rank 3's at
+# step 4: every rank attends live positions, and the merge weighs them.
+MESH_PROMPT, MESH_NEW = 380, 16
+_MESH_RANK = threading.local()   # the rank a thread of ``ThreadMesh`` runs
+MESH_LSE_SHAPES = ((8, 8, 2, 128, 128), (8, 16, 2, 128, 128),
+                   (8, 32, 8, 128, 128), (8, 64, 8, 128, 128))
+
+
+def _attn_lse_timing(q, k, v, valid, flush):
+    """``decode_attn`` with its log-sum-exp output on q (B, H, D) over k/v
+    (B, S, Hkv, D): its ms beside the plain version's (with the LSE) and
+    the memory-efficient SDPA kernel's with ``compute_log_sumexp`` (K/V
+    repeated to H heads beforehand, the fill levels as an additive bias),
+    and its bound (the live K and V, q, the output and the LSE once
+    each, the fill levels)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attn import decode_attn
+    b, h, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    ms = time_ms(lambda: decode_attn(q, k, v, valid, return_lse=True), flush)
+    plain = time_ms(lambda: ref.decode_attn_ref(q, k, v, valid,
+                                                return_lse=True), flush)
+    kt = k.transpose(1, 2).repeat_interleave(h // hkv, 1).contiguous()
+    vt = v.transpose(1, 2).repeat_interleave(h // hkv, 1).contiguous()
+    live = torch.arange(s, device="cuda")[None, :] < valid[:, None]
+    bias = torch.where(live, 0.0, -torch.inf).to(q.dtype)[:, None, None, :]
+    bias = bias.expand(b, h, 1, s).contiguous()
+    qq = q[:, :, None].contiguous()
+    lib = time_ms(lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+        qq, kt, vt, bias, True), flush)
+    n_valid = int(valid.sum())
+    nbytes = ((2 * n_valid * hkv * d + 2 * q.numel()) * q.element_size()
+              + b * 4 + b * h * 4)
+    b_ms, b_by = bound(nbytes, 4 * h * d * n_valid)
+    return {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib, "shape": [b, h, hkv, d, s],
+            "valid_len": valid.tolist(), "bytes": nbytes,
+            "bound_share": b_ms / ms}
+
+
+def _lse_parity():
+    """``decode_attn`` with the LSE output against its plain version at the
+    per-rank shapes (B, H, Hkv, D, S) of ``MESH_LSE_SHAPES`` (bf16; fill
+    levels 0, 1, partial and full: a shard with no live position has LSE
+    -inf on both), and with a null LSE: the same output bit for bit, within
+    2e-2 of the plain version. Returns the errors."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attn import decode_attn
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out = []
+    for b, h, hkv, d, s in MESH_LSE_SHAPES:
+        q = torch.randn((b, h, d), generator=gen, device="cuda").bfloat16()
+        k = torch.randn((b, s, hkv, d), generator=gen,
+                        device="cuda").bfloat16()
+        v = torch.randn((b, s, hkv, d), generator=gen,
+                        device="cuda").bfloat16()
+        valid = torch.tensor([0, 1, 37, s, 64, 0, s - 1, 100][:b],
+                             dtype=torch.int32, device="cuda")
+        got, lse = decode_attn(q, k, v, valid, return_lse=True)
+        want, want_lse = ref.decode_attn_ref(q, k, v, valid, return_lse=True)
+        plain_route = decode_attn(q, k, v, valid)
+        empty = valid == 0
+        inf_ok = bool(torch.isneginf(lse[empty]).all()
+                      and torch.isneginf(want_lse[empty]).all())
+        lse_err = float((lse[~empty] - want_lse[~empty]).abs().max())
+        rec = {"shape": [b, h, hkv, d, s], "valid_len": valid.tolist(),
+               "max_abs_err": max_errs(got, want)[0],
+               "lse_max_abs_err": lse_err, "empty_rows_neg_inf": inf_ok,
+               "null_lse_bitwise_equal": bool(torch.equal(plain_route, got)),
+               "null_lse_err_vs_plain": max_errs(plain_route, want)[0]}
+        out.append(rec)
+        require(rec["max_abs_err"] <= 2e-2 and lse_err <= 1e-3 and inf_ok
+                and rec["null_lse_bitwise_equal"]
+                and rec["null_lse_err_vs_plain"] <= 2e-2, "serve_mesh",
+                f"decode_attn with LSE against its plain version: {rec}")
+    return out
+
+
+def _mesh_rollout(cfg, shards, layout, prompts, forced=None, kernels=True):
+    """The rank program over ``ThreadMesh(layout, cuda)``: each rank's
+    ``Model`` on its ``shards[r]``, a prefill of ``prompts`` (B, P) into a
+    fresh cache of ``CACHE_CAP`` positions, then ``MESH_NEW`` decode steps
+    fed ``forced`` (B, MESH_NEW) tokens, or greedy when None. Returns rank
+    0's logits (prefill, then each step's) and tokens, the host ms of the
+    prefill and of each step (every rank synchronised), and each rank's
+    collective bytes."""
+    import torch
+    from repro_torch.bridge import shard_tensor
+    from repro_torch.distributed import ThreadMesh
+    from repro_torch.models import Model
+    from repro_torch.sharding import input_sharding, make_pc
+    b = prompts.shape[0]
+    clock = {}
+
+    def body(rm):
+        _MESH_RANK.rank = rm.rank
+        with torch.no_grad():
+            model = Model(cfg, device="cuda", pc=make_pc(
+                cfg, rm, batch=b, cap=CACHE_CAP)).with_kernels(kernels)
+            cache = model.init_cache(b, CACHE_CAP)
+            toks = shard_tensor(prompts, input_sharding(cfg, rm, b), rm,
+                                rm.rank)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = model.prefill(shards[rm.rank], {"tokens": toks},
+                                      cache)
+            outs, steps = [logits[:, -1:]], []
+            tok = logits[:, -1:, :cfg.vocab].argmax(-1)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for i in range(MESH_NEW):
+                fed = tok if forced is None else forced[:, i:i + 1]
+                logits, _ = model.decode_step(shards[rm.rank], fed, cache)
+                outs.append(logits)
+                tok = logits[:, :, :cfg.vocab].argmax(-1)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                steps.append((t2 - t1) * 1e3)
+                t1 = t2
+            if rm.rank == 0:
+                clock["prefill_ms"] = (t1 - t0) * 1e3 - sum(steps)
+                clock["step_ms"] = steps
+            toks = torch.cat([o[:, -1:, :cfg.vocab].argmax(-1)
+                              for o in outs], 1)
+            return (outs if rm.rank == 0 else None), toks, \
+                rm.collective_bytes
+
+    res = ThreadMesh(layout, "cuda").run(body)
+    return res[0][0], res[0][1], clock, [r[2] for r in res]
+
+
+def _unsharded_rollout(model, params, prompts, new, forced=None):
+    """The unsharded model: a prefill and ``new`` decode steps, fed
+    ``forced`` (B, new) tokens or greedy when None. Returns its logits
+    (the prefill's last position, then each step's) and tokens."""
+    import torch
+    with torch.no_grad():
+        cache = model.init_cache(prompts.shape[0], CACHE_CAP)
+        logits, _ = model.prefill(params, {"tokens": prompts}, cache)
+        outs = [logits[:, -1:]]
+        tok = logits[:, -1:, :model.cfg.vocab].argmax(-1)
+        for i in range(new):
+            if forced is not None:
+                tok = forced[:, i:i + 1]
+            logits, _ = model.decode_step(params, tok, cache)
+            outs.append(logits)
+            tok = logits[:, :, :model.cfg.vocab].argmax(-1)
+    toks = torch.cat([o[:, -1:, :model.cfg.vocab].argmax(-1) for o in outs],
+                     1)
+    return outs, toks
+
+
+@contextlib.contextmanager
+def _captured(module, name: str, out: list):
+    """Record the arguments of rank 0's first call of ``module.name`` (the
+    mesh's kernel call sites) while the block runs, so a kernel row times
+    the same shard in every run."""
+    fn = getattr(module, name)
+
+    def capture(*args, **kw):
+        if not out and getattr(_MESH_RANK, "rank", None) == 0:
+            out.append((args, kw))
+        return fn(*args, **kw)
+    setattr(module, name, capture)
+    try:
+        yield out
+    finally:
+        setattr(module, name, fn)
+
+
+def _mesh_model(phase, label, cfg, model, params, rows, flush, tol,
+                median=False):
+    """One arch through the rank program at ``MESH_SHAPE`` (full width, the
+    kernels), held against the unsharded ``model``: the unsharded greedy
+    stream is fed to the rank program (teacher forcing), whose logits must
+    lie within ``tol`` of the unsharded largest logit; the rank program's
+    own greedy stream is compared (first divergence printed, rounding may
+    part them: not gated). A control measures how far the unsharded
+    model's own plain path (no kernels) lies from its kernel path on the
+    same forced tokens: the spread that rounding alone gives this model.
+    With ``median``, ``tol`` holds the median over every (row, step) of
+    the logits' error instead of the largest: a near-tied top-2 choice
+    that flips under bf16 rounding moves one row at one step by far more
+    than the rounding (the control's rows too), while a layout fault
+    moves them all. The two
+    rank-program runs are the main path: the kernel counters are set to 0
+    before them and must read the exact launches after them
+    (``decode_attn`` once per layer, rank and decode step, over its
+    128-position shard with the LSE; ``moe_gmm`` once per MoE layer, rank
+    and call). With ``rows`` (a list): (a) rank 0's argument bytes for a
+    decode step at 8 slots and cache 512 against the dry run's
+    ``lowering_args`` on the same mesh, to the byte, (b) the collective
+    bytes of one plain-path decode step on the thread transport against
+    the counting transport's trace of it, and the kernel rows at rank 0's
+    shapes, each within 2e-2 of its plain version, added to ``rows``."""
+    import torch
+    from repro_torch.bridge import shard_params
+    from repro_torch.configs import InputShape
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.decode_attn import decode_attn
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import MeshLayout
+    from repro_torch.models import attention as tattn
+    from repro_torch.models import transformer as tt
+    from repro_torch.sharding import param_specs
+    t_phase = time.perf_counter()
+    layout = MeshLayout(MESH_SHAPE, ("data", "model"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    shards = [shard_params(params, param_specs(cfg, layout), layout, r)
+              for r in range(layout.size)]
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    prompts = torch.randint(1, cfg.vocab, (SLOTS, MESH_PROMPT),
+                            generator=gen, device="cuda")
+    want, want_toks = _unsharded_rollout(model.with_kernels(), params,
+                                         prompts, MESH_NEW)
+    attn_calls, gmm_calls = [], []
+    decode_attn.launches = moe_gmm.launches = 0
+    with _captured(tattn, "decode_attn_auto", attn_calls), \
+            _captured(kops, "moe_ffn", gmm_calls):
+        got, _, clock, _ = _mesh_rollout(cfg, shards, layout, prompts,
+                                         forced=want_toks[:, :-1])
+        _, greedy, _, _ = _mesh_rollout(cfg, shards, layout, prompts)
+    launches = {"decode_attn": decode_attn.launches,
+                "moe_gmm": moe_gmm.launches}
+    n_moe = tt.moe_layer_count(cfg)
+    n_layers = cfg.n_layers
+    expect = {"decode_attn": 2 * MESH_NEW * n_layers * layout.size,
+              "moe_gmm": 2 * (MESH_NEW + 1) * n_moe * layout.size}
+    require(launches == expect, phase, f"{label}: launches {launches} != "
+            f"{expect}")
+    def rel(a, b):
+        """Each step's (B,) row errors over its largest logit."""
+        return [(g.float() - w.float()).abs().amax((1, 2))
+                / w.float().abs().max() for g, w in zip(a, b)]
+    row_errs = rel(got, want)
+    errs = [float(e.max()) for e in row_errs]
+    control_rows = rel(_unsharded_rollout(model, params, prompts, MESH_NEW,
+                                          forced=want_toks[:, :-1])[0], want)
+    control = [float(e.max()) for e in control_rows]
+    err_median = float(torch.cat(row_errs).median())
+    control_median = float(torch.cat(control_rows).median())
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    same = torch.equal(greedy, want_toks)
+    diverge = None
+    if not same:
+        col = (greedy != want_toks).any(0).nonzero()
+        diverge = int(col[0]) if col.numel() else None
+    out = dict(arch=cfg.arch_id, label=label, mesh=list(MESH_SHAPE),
+               n_layers=cfg.n_layers, dtype=cfg.dtype, slots=SLOTS,
+               prompt=MESH_PROMPT, new=MESH_NEW, cache_cap=CACHE_CAP,
+               cache_per_rank=CACHE_CAP // layout.shape["model"],
+               shard_s=shard_s, launches=launches,
+               teacher_forced_err_of_max_logit=max(errs),
+               err_by_step=errs, tol=tol,
+               control_plain_vs_kernel_unsharded=max(control),
+               control_by_step=control, err_median=err_median,
+               control_median=control_median, greedy_identical=same,
+               first_divergence_step=diverge,
+               mesh_prefill_ms=clock["prefill_ms"],
+               mesh_step_ms_median=sorted(clock["step_ms"])[
+                   len(clock["step_ms"]) // 2])
+    gated = err_median if median else max(errs)
+    out["gated"] = "median" if median else "max"
+    emit(phase, **out)
+    require(finite and gated <= tol, phase,
+            f"{label}: teacher-forced logits off the unsharded model's by "
+            f"{gated} of its largest logit ({out['gated']}; {tol} allowed), "
+            f"finite={finite}")
+    if rows is None:
+        return
+
+    # (a) argument bytes; (b) collective bytes of one plain decode step.
+    shape = InputShape("serve_8x512", CACHE_CAP, SLOTS, "decode")
+    step, args, rm = specs.lowering_args(model.cfg, shape, layout)
+    pred_args = dryrun.tree_bytes(args)
+    dryrun.trace_step(step, args)
+    pred_coll = rm.collective_bytes
+    live = {}
+
+    def one_step(rmesh):
+        from repro_torch.bridge import shard_tensor
+        from repro_torch.models import Model
+        from repro_torch.sharding import input_sharding, make_pc
+        with torch.no_grad():
+            m = Model(model.cfg, device="cuda", pc=make_pc(
+                model.cfg, rmesh, batch=SLOTS, cap=CACHE_CAP))
+            cache = m.init_cache(SLOTS, CACHE_CAP)
+            tok = shard_tensor(prompts[:, :1].to(torch.int32),
+                               input_sharding(model.cfg, rmesh, SLOTS),
+                               rmesh, rmesh.rank)
+            if rmesh.rank == 0:
+                live["args"] = dryrun.tree_bytes(
+                    (shards[0], tok, cache))
+            before = rmesh.collective_bytes
+            m.decode_step(shards[rmesh.rank], tok, cache)
+            if rmesh.rank == 0:
+                live["coll"] = rmesh.collective_bytes - before
+    from repro_torch.distributed import ThreadMesh
+    ThreadMesh(layout, "cuda").run(one_step)
+    require(live["args"] == pred_args, phase, f"{label}: rank 0's argument "
+            f"bytes {live['args']}, the dry run's {pred_args}")
+    require(live["coll"] == pred_coll, phase, f"{label}: thread transport "
+            f"collective bytes {live['coll']}, counting transport's "
+            f"{pred_coll}")
+
+    # The kernel rows at the rank's shapes, on captured calls.
+    (q, k, v, valid), _ = attn_calls[0]
+    valid = valid.to(torch.int32).reshape(-1)
+    err = max_errs(decode_attn(q, k, v, valid, return_lse=True)[0],
+                   tattn.decode_attn_ref(q, k, v, valid))[0]
+    require(err <= 2e-2, phase, f"{label}: decode_attn at rank 0's shard "
+            f"off its plain version by {err}")
+    rows.append({"name": "decode_attn", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/decode_attn.cu",
+                 "replaces": "src/repro/kernels/decode_attn.py:91",
+                 "arch": f"{cfg.arch_id} (mesh 1x4, rank 0's shard, LSE)",
+                 "launches": launches["decode_attn"], "max_abs_err": err,
+                 **_attn_lse_timing(q, k, v, valid, flush)})
+    if gmm_calls:
+        (x, wg, wu, wd), kw = gmm_calls[0]
+        gs = kw["group_sizes"]
+        from repro_torch.kernels import ref
+        err = max_errs(moe_gmm(x, wg, wu, wd, act=kw["act"], group_sizes=gs),
+                       ref.moe_ffn_ref(x, wg, wu, wd, kw["act"], gs))[0]
+        require(err <= 2e-2, phase, f"{label}: moe_gmm at rank 0's experts "
+                f"off its plain version by {err}")
+        ms = time_ms(lambda: moe_gmm(x, wg, wu, wd, act=kw["act"],
+                                     group_sizes=gs), flush)
+        plain = time_ms(lambda: ref.moe_ffn_ref(x, wg, wu, wd, kw["act"],
+                                                gs), flush, 5)
+        e, c, d = x.shape
+        f = wg.shape[-1]
+        live_e = int((gs > 0).sum())
+        nbytes = ((live_e * 3 * d * f + 2 * x.numel()) * x.element_size()
+                  + e * 4)
+        b_ms, b_by = bound(nbytes, 2 * 3 * d * f * int(gs.sum()))
+        rows.append({"name": "moe_gmm", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+                     "replaces": "src/repro/kernels/moe_gmm.py:112",
+                     "arch": f"{cfg.arch_id} (mesh 1x4, rank 0's experts)",
+                     "launches": launches["moe_gmm"], "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None,
+                     "shape": [e, c, d, f], "group_sizes": gs.tolist()})
+    emit(phase, arch=cfg.arch_id, label=label, argument_bytes=live["args"],
+         argument_bytes_dry_run=pred_args,
+         collective_bytes_decode_step=live["coll"],
+         collective_bytes_counting=pred_coll,
+         seconds=time.perf_counter() - t_phase)
+
+
+def phase_serve_mesh(model, params):
+    """``serve_mesh``: the reference's mesh layout as the rank program on
+    4 in-process ranks of one card (a (1, 4) mesh: tensor parallelism,
+    the experts over (data, model), the cache's sequence over ``model``)
+    at full width: phi3.5-MoE in bf16 at 8 layers (its params are the
+    loaded model's, cut into 4 rank shards; the capacity factor raised
+    to 8.0 on both sides, so neither the unsharded dispatch nor the
+    ranks' drop a token and the two are comparable), then in fp32 at 2
+    layers, then qwen3-32b in bf16 at 8 of 64 layers (head-parallel
+    dense); each made, held and freed here but the loaded model. Prompts
+    of ``MESH_PROMPT`` tokens put live positions on every rank's shard.
+    First ``decode_attn``'s LSE output against its plain version at the
+    per-rank shapes. phi3.5's bf16 logits are gated at 2e-2 on the median
+    of their (row, step) errors, not the largest: bf16 rounds the sharded
+    sums differently from the unsharded products, and a token whose top-2
+    experts are near-tied can then take another expert, which moves its
+    logits by far more than the rounding, as the control's own kernel and
+    plain paths part. The fp32 run holds the same layout within the repo's
+    fp32 logit tolerance of 1e-4, and qwen3 (no routing) within the bf16
+    tolerance of 2e-2. Returns the kernel rows."""
+    import torch
+    from repro_torch.configs import cut_depth, get_config
+    from repro_torch.models import Model
+    phase = "serve_mesh"
+    t0 = time.perf_counter()
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    emit(phase, part="lse_parity", checks=_lse_parity())
+    rows = []
+    cfg = model.cfg
+    cfg8 = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=8.0))
+    _mesh_model(phase, "phi3.5 bf16 (cf 8.0)", cfg8, Model(cfg8, device="cuda"),
+                params, rows, flush, tol=2e-2, median=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32 = dataclasses.replace(cfg8, n_layers=2, dtype="float32")
+    fmodel = Model(f32, device="cuda")
+    fparams = fmodel.init(0)
+    _mesh_model(phase, "phi3.5 fp32, 2 layers (cf 8.0)", f32, fmodel,
+                fparams, None, flush, tol=1e-4)
+    del fparams, fmodel
+    gc.collect()
+    torch.cuda.empty_cache()
+    qcfg = cut_depth(get_config("qwen3-32b"), 8)
+    qmodel = Model(qcfg, device="cuda")
+    qparams = qmodel.init(0)
+    _mesh_model(phase, "qwen3-32b bf16", qcfg, qmodel, qparams, rows, flush,
+                tol=2e-2)
+    del qparams, qmodel
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(phase, ok=True, seconds=time.perf_counter() - t0)
+    return rows
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke.py runs from the root of a checkout of the repo "
@@ -3558,6 +4010,7 @@ def main() -> int:
     rows += dense_rows
     rows += phase_serve_families(model.cfg)
     phase_dryrun_serve(model, params)
+    rows += phase_serve_mesh(model, params)
     # The phi3.5 model, its params and engines go before DeepSeek-V3's
     # ~53 GB of weights are made.
     del model, params, monitor, spec

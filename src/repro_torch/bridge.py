@@ -91,3 +91,88 @@ def leaf_paths(tree, prefix=()) -> list[tuple]:
     if isinstance(tree, (tuple, list)):
         return [p for i, v in enumerate(tree) for p in leaf_paths(v, prefix + (i,))]
     return [prefix]
+
+
+# ---------------------------------------------------------------------------
+# A rank's shards under the mesh layout (``sharding.param_specs`` /
+# ``cache_specs`` / ``input_sharding``)
+# ---------------------------------------------------------------------------
+
+def _entry_axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def local_shape(shape, spec, mesh) -> tuple:
+    """The shape of one rank's shard of a leaf of ``shape`` under
+    ``spec`` (each sharded dim divided by the size of its axes)."""
+    out = list(shape)
+    for dim, entry in enumerate(spec):
+        axes = _entry_axes(entry)
+        if axes:
+            n = mesh.axis_size(axes)
+            if out[dim] % n:
+                raise ValueError(f"dim {dim} of {tuple(shape)} does not "
+                                 f"divide over {axes} ({n})")
+            out[dim] //= n
+    return tuple(out)
+
+
+def shard_tensor(t: torch.Tensor, spec, mesh, rank: int) -> torch.Tensor:
+    """Rank ``rank``'s shard of ``t`` under ``spec`` (a tuple, one entry
+    per leading dim of ``t``: None, an axis name or a tuple of names), as
+    a new contiguous tensor on ``t``'s device. ``mesh``: a
+    ``launch.mesh.MeshLayout`` (or a bound ``RankMesh``)."""
+    layout = getattr(mesh, "layout", mesh)
+    out = t
+    for dim, entry in enumerate(spec):
+        axes = _entry_axes(entry)
+        if axes:
+            n = layout.axis_size(axes)
+            size = t.shape[dim] // n
+            if size * n != t.shape[dim]:
+                raise ValueError(f"dim {dim} of {tuple(t.shape)} does not "
+                                 f"divide over {axes} ({n})")
+            out = out.narrow(dim, layout.axis_index(rank, axes) * size, size)
+    return out.clone(memory_format=torch.contiguous_format)
+
+
+def _zip_map(fn, tree, specs):
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_zip_map(fn, v, s) for v, s in zip(tree, specs))
+    return fn(tree, specs)
+
+
+def spec_leaves(tree, specs) -> list:
+    """``specs``' leaves (one tuple per leaf of ``tree``, which gives the
+    structure: a spec is itself a tuple) in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in spec_leaves(tree[k],
+                                                              specs[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v, s in zip(tree, specs) for x in spec_leaves(v, s)]
+    return [specs]
+
+
+def shard_params(params, specs, mesh, rank: int):
+    """Rank ``rank``'s shards of a params tree (the JAX package's carried
+    params or the port's own) under ``sharding.param_specs``; AdamW
+    moments, which lie like the params, take the same specs."""
+    return _zip_map(lambda t, s: shard_tensor(t, s, mesh, rank), params,
+                    specs)
+
+
+def shard_cache(cache, specs, mesh, rank: int):
+    """Rank ``rank``'s shard of a cache tree under ``sharding.cache_specs``.
+    A per-slot ``len`` vector lies with its rows (the batch's axes), which
+    ``cache_specs`` leaves replicated as the reference's does."""
+    out = _zip_map(lambda t, s: shard_tensor(t, s, mesh, rank), cache, specs)
+    lens = cache["len"]
+    if lens.ndim == 1:
+        seg_spec = next(s for seg in specs["segments"] for e in seg
+                        for s in e.values())
+        out["len"] = shard_tensor(lens, (seg_spec[1],), mesh, rank)
+    return out

@@ -228,8 +228,11 @@ def _replicated_counts(idxs, valids, n_experts: int, group: EPGroup):
 
 def expert_shard(experts, rank: int, epd: int) -> dict:
     """Rank ``rank``'s block of ``epd`` experts: VIEWS of the expert leaves
-    (a contiguous slice of the leading expert axis), never copies."""
-    return {k: v[rank * epd:(rank + 1) * epd] for k, v in experts.items()}
+    (a contiguous slice of the leading expert axis), never copies. Leaves
+    that hold ``epd`` experts already are the rank's own block (the mesh
+    layout's shards) and are returned as they are."""
+    return {k: v if v.shape[0] == epd else v[rank * epd:(rank + 1) * epd]
+            for k, v in experts.items()}
 
 
 def rank_ffn(shard, xb, act: str, kernels=None, group_sizes=None):

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -26,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()     # ranks on threads load at once (one build)
 
 
 def _nvcc() -> str:
@@ -86,13 +88,28 @@ def build_all() -> dict:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     lib = _libs.get(name)
-    if lib is None:
-        _finish(name, _start(name))
-        lib = ctypes.CDLL(str(_target(name)))
-        lib.error_string.argtypes = [ctypes.c_int]
-        lib.error_string.restype = ctypes.c_char_p
-        _libs[name] = lib
+    if lib is not None:
+        return lib
+    with _load_lock:
+        lib = _libs.get(name)
+        if lib is None:
+            _finish(name, _start(name))
+            lib = ctypes.CDLL(str(_target(name)))
+            lib.error_string.argtypes = [ctypes.c_int]
+            lib.error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
     return lib
+
+
+count_lock = threading.Lock()     # the wrappers' launch counters
+
+
+def count(fn) -> None:
+    """One more launch on ``fn.launches`` (the wrappers' counters), under a
+    lock: ranks on threads launch at once, and ``+=`` on an attribute is
+    not atomic."""
+    with count_lock:
+        fn.launches += 1
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

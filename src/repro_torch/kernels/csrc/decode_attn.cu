@@ -9,6 +9,13 @@
 // valid_len[b] <= 0 every score is -1e30, so the answer is the mean of V
 // over all S positions, as on the TPU.
 //
+// Optional output: the natural log-sum-exp of each (b, head)'s scaled
+// scores over its live positions, fp32 (B, H), for merging partial
+// attentions over a sequence-sharded cache (the mesh layout's decode). A
+// row with valid_len <= 0 has no live position: its LSE is -inf, so it
+// weighs 0 in a merge (its output stays the mean of V). A null pointer
+// writes nothing; the launch's geometry and work are the same either way.
+//
 // What bounds it on an H100: every live K and V byte is read once for a
 // handful of multiply-adds (G = 4 query heads per kv head on the main
 // path), so the least time is the K+V bytes up to valid_len over 3.35 TB/s,
@@ -56,6 +63,7 @@ constexpr int NT = 256;  // threads per block
 constexpr int NW = NT / 32;
 constexpr int MAX_SPLIT = 32;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr float NEG2 = -1e30f * LOG2E;  // the reference's mask value, base 2
 
 // 16 bytes as fp32: 8 bf16 or 4 float values.
@@ -109,8 +117,8 @@ template <typename T, int GMAX>
 __global__ void __launch_bounds__(NT)
 attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
             const int* __restrict__ valid_len, T* __restrict__ out,
-            float* __restrict__ work, int* __restrict__ tickets, int H, int Hkv, int S,
-            int D, int lpp, int tile, int nbuf, float scale) {
+            float* __restrict__ lse, float* __restrict__ work, int* __restrict__ tickets,
+            int H, int Hkv, int S, int D, int lpp, int tile, int nbuf, float scale) {
   constexpr int VEC = 16 / sizeof(T);
   const int split = gridDim.x, rank = blockIdx.x;
   const int kvh = blockIdx.y, b = blockIdx.z;
@@ -320,6 +328,8 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
     for (int r = 0; r < split; ++r) mf = fmaxf(mf, fm[r * G + g]);
     for (int r = 0; r < split; ++r) lf = fmaf(weight(fm[r * G + g], mf), fl[r * G + g], lf);
     const float inv = 1.f / fmaxf(lf, 1e-30f);
+    if (lse != nullptr)
+      lse[(size_t)b * H + (size_t)kvh * G + g] = masked ? -INFINITY : (mf + log2f(lf)) * LN2;
     for (int r = 0; r < split; ++r) fm[r * G + g] = weight(fm[r * G + g], mf) * inv;
   }
   __syncthreads();
@@ -335,7 +345,7 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
 
 template <typename T, int GMAX>
 int launch(const void* q, const void* k, const void* v, const int* vl, void* out,
-           float* work, int* tickets, int B, int H, int Hkv, int S, int D, int lpp,
+           float* lse, float* work, int* tickets, int B, int H, int Hkv, int S, int D, int lpp,
            int split, int tile, int nbuf, size_t smem, float scale, cudaStream_t st) {
   auto kern = attn_kernel<T, GMAX>;
   static int smem_set = 48 * 1024;  // this instantiation's opt-in so far
@@ -347,16 +357,16 @@ int launch(const void* q, const void* k, const void* v, const int* vl, void* out
   }
   kern<<<dim3(split, Hkv, B), NT, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), vl,
-      static_cast<T*>(out), work, tickets, H, Hkv, S, D, lpp, tile, nbuf, scale);
+      static_cast<T*>(out), lse, work, tickets, H, Hkv, S, D, lpp, tile, nbuf, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 int launch_g(int G, const void* q, const void* k, const void* v, const int* vl, void* out,
-             float* work, int* tickets, int B, int H, int Hkv, int S, int D, int lpp,
+             float* lse, float* work, int* tickets, int B, int H, int Hkv, int S, int D, int lpp,
              int split, int tile, int nbuf, size_t smem, float scale, cudaStream_t st) {
 #define REPRO_LAUNCH(GM)                                                                  \
-  return launch<T, GM>(q, k, v, vl, out, work, tickets, B, H, Hkv, S, D, lpp, split, tile, \
+  return launch<T, GM>(q, k, v, vl, out, lse, work, tickets, B, H, Hkv, S, D, lpp, split, tile, \
                        nbuf, smem, scale, st)
   if (G <= 1) REPRO_LAUNCH(1);
   if (G <= 2) REPRO_LAUNCH(2);
@@ -367,7 +377,8 @@ int launch_g(int G, const void* q, const void* k, const void* v, const int* vl, 
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Geometry from the wrapper
+// dtype: 0 = float32, 1 = bfloat16. lse: fp32 (B, H) log-sum-exp output, or
+// null for none. Geometry from the wrapper
 // (kernels/decode_attn.py:geometry): `split` blocks per (b, kv head),
 // `lpp` lanes per position, tiles of `tile` positions in `nbuf` buffers,
 // `smem` dynamic shared-memory bytes. work: fp32 workspace of
@@ -376,7 +387,7 @@ int launch_g(int G, const void* q, const void* k, const void* v, const int* vl, 
 // (0 = launched), or cudaErrorInvalidValue if the geometry is not one the
 // kernel takes.
 extern "C" int decode_attn_launch(const void* q, const void* k, const void* v,
-                                  const void* valid_len, void* out, void* work,
+                                  const void* valid_len, void* out, void* lse, void* work,
                                   void* tickets, int B, int H, int Hkv, int S, int D,
                                   int split, int lpp, int tile, int nbuf, long long smem,
                                   float scale, int dtype, void* stream) {
@@ -390,12 +401,13 @@ extern "C" int decode_attn_launch(const void* q, const void* k, const void* v,
   if (!ok) return cudaErrorInvalidValue;
   const int* vl = static_cast<const int*>(valid_len);
   float* w = static_cast<float*>(work);
+  float* ls = static_cast<float*>(lse);
   int* tk = static_cast<int*>(tickets);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch_g<__nv_bfloat16>(G, q, k, v, vl, out, w, tk, B, H, Hkv, S, D, lpp, split,
+    return launch_g<__nv_bfloat16>(G, q, k, v, vl, out, ls, w, tk, B, H, Hkv, S, D, lpp, split,
                                    tile, nbuf, (size_t)smem, scale, st);
-  return launch_g<float>(G, q, k, v, vl, out, w, tk, B, H, Hkv, S, D, lpp, split, tile, nbuf,
+  return launch_g<float>(G, q, k, v, vl, out, ls, w, tk, B, H, Hkv, S, D, lpp, split, tile, nbuf,
                          (size_t)smem, scale, st);
 }
 

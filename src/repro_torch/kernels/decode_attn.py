@@ -5,12 +5,15 @@ version (``ref.decode_attn_ref``); a CUDA tensor launches the kernel (one
 launch: ``split`` blocks per (batch row, kv head) divide the row's live
 range, and the row's last block to finish merges their partials) or
 raises. ``geometry`` computes the launch's shape; ``decode_attn.launches``
-counts the wrapper's kernel runs.
+counts the wrapper's kernel runs. With ``return_lse`` the kernel also
+writes each (row, head)'s log-sum-exp, which a sequence-sharded cache's
+partial attentions merge by (the mesh layout's decode).
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -29,6 +32,9 @@ SMS = 132                        # streaming multiprocessors of an H100
 # Calls on one stream are ordered, so they can share a buffer; calls on
 # two streams run side by side and get one each.
 _tickets: dict[tuple[torch.device, int], torch.Tensor] = {}
+# Ranks on threads (``distributed.mesh.ThreadMesh``) share one stream and
+# so one buffer: it is made, or grown, under this lock.
+_tickets_lock = threading.Lock()
 
 
 def _pow2_ceil(n: int) -> int:
@@ -88,10 +94,11 @@ def geometry(b: int, h: int, hkv: int, s: int, d: int, dtype) -> dict:
 
 def _tickets_for(device, stream, rows: int) -> torch.Tensor:
     key = (device, stream.cuda_stream)
-    t = _tickets.get(key)
-    if t is None or t.numel() < rows:
-        t = torch.zeros(max(rows, 64), dtype=torch.int32, device=device)
-        _tickets[key] = t
+    with _tickets_lock:
+        t = _tickets.get(key)
+        if t is None or t.numel() < rows:
+            t = torch.zeros(max(rows, 64), dtype=torch.int32, device=device)
+            _tickets[key] = t
     return t
 
 
@@ -99,18 +106,21 @@ def _lib():
     lib = _build.load("decode_attn")
     fn = lib.decode_attn_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                        + [ctypes.c_longlong, ctypes.c_float, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
 
-def decode_attn(q, k, v, valid_len):
-    """q: (B, H, D); k/v: (B, S, Hkv, D); valid_len: (B,) int -> (B, H, D).
+def decode_attn(q, k, v, valid_len, return_lse: bool = False):
+    """q: (B, H, D); k/v: (B, S, Hkv, D); valid_len: (B,) int -> (B, H, D),
+    and with ``return_lse`` also the (B, H) fp32 natural log-sum-exp of
+    each row's scaled scores over its live positions.
 
     A row with ``valid_len <= 0`` has every score masked, so it gets the
-    mean of V over all S positions (as the reference does)."""
+    mean of V over all S positions (as the reference does) and an LSE of
+    -inf (it weighs nothing in a merge)."""
     b, h, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
     if tuple(k.shape) != (b, s, hkv, d) or v.shape != k.shape:
@@ -122,7 +132,7 @@ def decode_attn(q, k, v, valid_len):
         raise ValueError(f"valid_len has shape {tuple(valid_len.shape)}, "
                          f"want ({b},)")
     if q.device.type == "cpu":
-        return ref.decode_attn_ref(q, k, v, valid_len)
+        return ref.decode_attn_ref(q, k, v, valid_len, return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attn runs on cpu or cuda, not {q.device}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -137,19 +147,22 @@ def decode_attn(q, k, v, valid_len):
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("decode_attn q/k/v must be 16-byte aligned")
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     work = torch.empty(geo["work"], dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device)
     tickets = _tickets_for(q.device, stream, b * hkv)
     lib = _lib()
     err = lib.decode_attn_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_len.data_ptr(),
-        out.data_ptr(), work.data_ptr(), tickets.data_ptr(), b, h, hkv, s, d,
+        out.data_ptr(), lse.data_ptr() if lse is not None else None,
+        work.data_ptr(), tickets.data_ptr(), b, h, hkv, s, d,
         geo["split"], geo["lpp"],
         geo["tile"], geo["buffers"], geo["smem"], d ** -0.5,
         _DTYPES[q.dtype], stream.cuda_stream)
     _build.check(lib, err, "decode_attn launch")
-    decode_attn.launches += 1
-    return out
+    _build.count(decode_attn)
+    return (out, lse) if return_lse else out
 
 
 decode_attn.launches = 0

@@ -159,7 +159,7 @@ def moe_gmm(x, w_gate, w_up, w_down, *, group_sizes=None,
         _ACTS[act], _geo_ints(geo),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "moe_gmm launch")
-    moe_gmm.launches += 1
+    _build.count(moe_gmm)
     return y
 
 

@@ -39,10 +39,12 @@ def moe_ffn_ref(x, w_gate, w_up, w_down, act: str = "swiglu",
     return y.to(x.dtype)
 
 
-def decode_attn_ref(q, k, v, valid_len):
+def decode_attn_ref(q, k, v, valid_len, return_lse: bool = False):
     """Single-query GQA decode attention.
 
-    q: (B, H, D); k/v: (B, S, Hkv, D); valid_len: (B,) int -> (B, H, D).
+    q: (B, H, D); k/v: (B, S, Hkv, D); valid_len: (B,) int -> (B, H, D);
+    with ``return_lse`` also the (B, H) fp32 log-sum-exp of each row's
+    scaled scores over positions < valid_len (-inf for a row with none).
     """
     b, h, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
@@ -50,7 +52,11 @@ def decode_attn_ref(q, k, v, valid_len):
     scores = torch.einsum("bkgd,bskd->bkgs", qg.float(), k.float()) * d ** -0.5
     mask = (torch.arange(s, device=q.device)[None]
             < valid_len.to(q.device)[:, None])                     # (B, S)
+    live = torch.where(mask[:, None, None], scores, -torch.inf)
     scores = torch.where(mask[:, None, None], scores, -1e30)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", probs.to(v.dtype).float(), v.float())
-    return out.reshape(b, h, d).to(q.dtype)
+    out = out.reshape(b, h, d).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, torch.logsumexp(live, dim=-1).reshape(b, h)

@@ -22,12 +22,29 @@ leaves in blocks of E/n, everything else replicated, as the port's EP
 engines hold them) and the collective bytes from ``ep_round_bytes``. Each
 record says which of its figures are traced and which are reckoned.
 
+With ``--multi-pod`` or ``--both-meshes`` it records, per device of the
+reference's production meshes (``pod16x16``: (16, 16) over (data,
+model), 256 devices; ``pod2x16x16``: (2, 16, 16) over (pod, data, model),
+512), the mesh layout of ``sharding.rules``: rank 0's step as the rank
+program (``launch.specs.lowering_args``) over a ``CountingMesh`` on
+``meta``. Its arguments are rank 0's shards, exact; FLOPs, temp, outputs
+and collective bytes (each collective's result, the convention of the
+reference's ``collective_bytes_from_hlo``) are traced from the rank
+program. The row-parallel partial sums travel in fp32
+(``models.layers.row_parallel``), where the reference's lowering sums
+them in the activation dtype, so their all-reduces count twice its
+bytes. Rank 0 stands for every device: the rules split a dim only where
+its axes divide it, so every rank holds the same shapes. Train steps (no
+rank-program backward: ROADMAP A5) and the serving steps of the SSM,
+hybrid and encoder-decoder families (their rank program is ROADMAP A4)
+keep exact arguments from the shards and take FLOPs, temp and outputs
+from the one-card trace as upper bounds, with no collective bytes. Each
+record says which of its figures are traced and which are reckoned.
+
 A pair that cannot be traced is reported ``FAILED`` with its traceback,
 and the run exits 1; nothing is replaced by an analytic guess.
 
-Four of the reference's flags have no counterpart: ``--multi-pod`` and
-``--both-meshes`` pick TPU pod meshes (``--cards`` takes their place: one
-or more card counts, such as 1, 4 and 8 for one HGX H100 node);
+Two of the reference's flags have no counterpart:
 ``--no-calibrate`` skips the correction for XLA counting a ``scan`` body
 once, which the port does not need: its layers run in a Python loop, so
 the trace sees every layer; and ``--moe-impl`` picks the reference's
@@ -38,6 +55,8 @@ bytes (``roofline.ep_round_bytes``), so no figure would depend on it.
 Usage:
   python -m repro_torch.launch.dryrun --arch deepseek-v3-671b --shape train_4k
   python -m repro_torch.launch.dryrun --all --cards 1 4 8 [--out DIR]
+  python -m repro_torch.launch.dryrun --arch phi3.5-moe-42b-a6.6b \
+      --shape decode_32k --both-meshes
 """
 
 from __future__ import annotations
@@ -255,6 +274,114 @@ def _record(cfg, shape, n_cards: int, tr: dict, arg_b: int,
     return rec
 
 
+MESH_NAMES = {False: "pod16x16", True: "pod2x16x16"}
+
+
+def run_mesh_pair(cfg_or_arch, shape, multi_pods=(False,),
+                  out_dir: str | None = None) -> list:
+    """The per-device records of one (config x shape) on the reference's
+    production meshes, one for each of ``multi_pods`` (False: 16 x 16,
+    True: 2 x 16 x 16). The one-card trace that a train or deferred pair
+    falls back to is made once for all of them."""
+    from ..configs import SHAPES, get_config
+    from . import specs as S
+    from .mesh import make_production_mesh
+
+    cfg = (get_config(cfg_or_arch) if isinstance(cfg_or_arch, str)
+           else cfg_or_arch)
+    shape = SHAPES[shape] if isinstance(shape, str) else shape
+    recs, one_card = [], None
+    for mp in multi_pods:
+        name = MESH_NAMES[mp]
+        if not S.supported(cfg, shape):
+            recs.append({"arch": cfg.arch_id, "shape": shape.name,
+                         "mesh": name, "device": "meta",
+                         "status": ("skipped (shape-skip matrix: long_500k "
+                                    "needs a sub-quadratic config)")})
+            continue
+        mesh = make_production_mesh(multi_pod=mp)
+        step, args, rm = S.lowering_args(cfg, shape, mesh)
+        arg_b = tree_bytes(args)
+        if step is not None:
+            rm.collective_bytes = 0
+            tr = trace_step(step, args)
+            coll = rm.collective_bytes
+        else:
+            if one_card is None:
+                one_card = trace_step(*S.step_args(cfg, shape))
+            tr, coll = one_card, None
+        del args
+        recs.append(_mesh_record(cfg, shape, name, mesh.size, tr, arg_b,
+                                 coll, out_dir))
+    return recs
+
+
+def _mesh_record(cfg, shape, name: str, n_dev: int, tr: dict, arg_b: int,
+                 coll, out_dir: str | None) -> dict:
+    from ..roofline import roofline_report
+    out_b = tr["output_bytes"]
+    traced = coll is not None
+    if traced:
+        figures = {
+            "traced": ["cost.flops", "memory.temp_size_in_bytes",
+                       "memory.output_size_in_bytes",
+                       "cost.collective_bytes"],
+            "exact": ["memory.argument_size_in_bytes"],
+            "reckoned": [],
+            "note": "rank 0's rank program on meta over a CountingMesh; "
+                    "arguments are its shards; row-parallel partial sums "
+                    "travel in fp32, so their all-reduces count twice the "
+                    "bytes of the reference's, which sums them in the "
+                    "activation dtype"}
+    else:
+        why = ("sharded training has no rank program yet (ROADMAP A5)"
+               if shape.kind == "train" else
+               "this family's rank program waits (ROADMAP A4)")
+        figures = {
+            "traced": [],
+            "exact": ["memory.argument_size_in_bytes"],
+            "reckoned": ["cost.flops", "memory.temp_size_in_bytes",
+                         "memory.output_size_in_bytes"],
+            "note": f"{why}: flops, temp and outputs are the one-card "
+                    "trace's whole step, upper bounds for one device; no "
+                    "collective bytes"}
+    rec = dict(
+        arch=cfg.arch_id, shape=shape.name, mesh=name, device="meta",
+        status="ok", n_devices=n_dev, trace_s=round(tr["trace_s"], 2),
+        memory={"argument_size_in_bytes": arg_b,
+                "output_size_in_bytes": out_b,
+                "temp_size_in_bytes": tr["temp_bytes"],
+                "per_device_total_gib": round(
+                    (arg_b + tr["temp_bytes"]) / 2**30, 3)},
+        cost={"flops": tr["flops"], "bytes": arg_b,
+              "collective_bytes": coll},
+        figures=figures)
+    rec["roofline"] = roofline_report(
+        flops=tr["flops"], hbm_bytes=arg_b, collective_bytes=coll or 0,
+        n_devices=n_dev if traced else 1, cfg=cfg, shape=shape,
+        arg_bytes=arg_b, out_bytes=out_b)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, f"{cfg.arch_id}_{shape.name}_{name}.json")
+        with open(path, "w") as f:
+            json.dump(rec, f, indent=1)
+    return rec
+
+
+def _print(tag: str, rec: dict) -> None:
+    extra = ""
+    if rec["status"] == "ok":
+        roof = rec["roofline"]
+        terms = " ".join(f"{k[:-2]} {roof[k] * 1e3:.4g} ms"
+                         for k in ("compute_s", "memory_s", "collective_s"))
+        per = "card" if "cards" in rec else "device"
+        extra = (f"  trace {rec['trace_s']}s mem/{per} "
+                 f"{rec['memory']['per_device_total_gib']} GiB "
+                 f"{rec['cost']['flops'] / 1e12:.1f} TFLOP {terms} -> "
+                 f"{roof['dominant']}")
+    print(f"[dryrun] {tag}: {rec['status']}{extra}", flush=True)
+
+
 def main(argv=None) -> int:
     from ..configs import ARCH_IDS, SHAPES
 
@@ -263,12 +390,20 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", choices=list(ARCH_IDS))
     ap.add_argument("--shape", choices=list(SHAPES))
     ap.add_argument("--all", action="store_true")
-    ap.add_argument("--cards", type=int, nargs="+", default=[1],
+    ap.add_argument("--cards", type=int, nargs="+", default=None,
                     help="EP layouts over this many cards (e.g. 1 4 8); "
-                    "each pair is traced once for all of them")
+                    "each pair is traced once for all of them (default 1 "
+                    "without a mesh flag)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="per device of the 2x16x16 mesh (pod2x16x16)")
+    ap.add_argument("--both-meshes", action="store_true",
+                    help="per device of the 16x16 and 2x16x16 meshes")
     ap.add_argument("--out", default=DEFAULT_OUT)
     args = ap.parse_args(argv)
-    if min(args.cards) < 1:
+    meshes = ([False, True] if args.both_meshes
+              else [True] if args.multi_pod else [])
+    cards = args.cards if args.cards or meshes else [1]
+    if cards and min(cards) < 1:
         ap.error("--cards must be >= 1")
 
     archs = list(ARCH_IDS) if args.all or not args.arch else [args.arch]
@@ -277,28 +412,28 @@ def main(argv=None) -> int:
           flush=True)
     failures = 0
     for arch, shape in itertools.product(archs, shapes):
-        try:
-            recs = run_pair(arch, shape, args.cards, out_dir=args.out)
-        except Exception:
-            failures += 1
-            for n in args.cards:
-                print(f"[dryrun] {arch} x {shape} x {n} card(s): FAILED",
-                      flush=True)
-            traceback.print_exc()
-            continue
-        for rec in recs:
-            extra = ""
-            if rec["status"] == "ok":
-                roof = rec["roofline"]
-                terms = " ".join(
-                    f"{k[:-2]} {roof[k] * 1e3:.4g} ms"
-                    for k in ("compute_s", "memory_s", "collective_s"))
-                extra = (f"  trace {rec['trace_s']}s mem/card "
-                         f"{rec['memory']['per_device_total_gib']} GiB "
-                         f"{rec['cost']['flops'] / 1e12:.1f} TFLOP "
-                         f"{terms} -> {roof['dominant']}")
-            print(f"[dryrun] {arch} x {shape} x {rec['cards']} card(s): "
-                  f"{rec['status']}{extra}", flush=True)
+        runs = []
+        if cards:
+            runs.append(("card(s)", cards, lambda: run_pair(
+                arch, shape, cards, out_dir=args.out)))
+        if meshes:
+            runs.append(("mesh", [MESH_NAMES[m] for m in meshes],
+                         lambda: run_mesh_pair(arch, shape, meshes,
+                                               out_dir=args.out)))
+        for kind, names, run in runs:
+            try:
+                recs = run()
+            except Exception:
+                failures += 1
+                for n in names:
+                    print(f"[dryrun] {arch} x {shape} x {n} {kind}: FAILED",
+                          flush=True)
+                traceback.print_exc()
+                continue
+            for rec in recs:
+                label = (f"{rec['cards']} card(s)" if "cards" in rec
+                         else rec["mesh"])
+                _print(f"{arch} x {shape} x {label}", rec)
     return 1 if failures else 0
 
 

@@ -118,3 +118,72 @@ def step_args(cfg, shape):
     cache = abstract_cache(cfg, b, s,
                            src_len=SRC_LEN if cfg.is_encoder_decoder else 0)
     return serve_step, (params, inputs["tokens"], cache)
+
+
+# ---------------------------------------------------------------------------
+# The mesh layout: rank 0's step on meta (the reference's lowering on its
+# production meshes)
+# ---------------------------------------------------------------------------
+
+def rank_program_runs(cfg, shape, mesh) -> bool:
+    """Whether rank 0's step of this pair is traced on the mesh: serving
+    steps only (sharded training is ROADMAP A5), and not for the SSM,
+    hybrid and encoder-decoder families once ``model`` splits (their rank
+    program is ROADMAP A4)."""
+    deferred = cfg.family in ("ssm", "hybrid") or cfg.is_encoder_decoder
+    return shape.kind != "train" and not (
+        deferred and mesh.shape["model"] > 1)
+
+
+def _shard_inputs(cfg, inputs, mesh, rank: int, batch: int) -> dict:
+    from ..bridge import shard_tensor
+    from ..sharding import input_sharding
+    spec = input_sharding(cfg, mesh, batch)
+    return {k: shard_tensor(v, spec, mesh, rank) for k, v in inputs.items()}
+
+
+def lowering_args(cfg, shape, mesh):
+    """(step_fn, args, rank_mesh) of rank 0 on ``mesh`` (a
+    ``launch.mesh.MeshLayout``): its shards of the params, of the AdamW
+    moments at train (they lie like the params), of the cache and of the
+    inputs, on ``meta`` (the reference's ``lowering_args`` on a mesh).
+    ``step_fn`` runs the rank program over a ``CountingMesh``
+    (``rank_mesh``), which counts its collective bytes; it is None where
+    ``rank_program_runs`` is false (the arguments are still this rank's).
+    Rank 0 stands for every rank: the rules split a dim only where its
+    axes divide it, so every rank holds the same shapes."""
+    from ..bridge import shard_cache, shard_params
+    from ..distributed.mesh import CountingMesh
+    from ..sharding import cache_specs, make_pc, param_specs
+    b, s = shape.global_batch, shape.seq_len
+    rank = 0
+    pspecs = param_specs(cfg, mesh)
+    params = shard_params(abstract_params(cfg), pspecs, mesh, rank)
+    inputs = _shard_inputs(cfg, input_specs(cfg, shape), mesh, rank, b)
+    rm = CountingMesh(mesh, rank)
+    if shape.kind == "train":
+        opt, _ = abstract_opt(cfg, abstract_params(cfg))
+        opt = {"m": shard_params(opt["m"], pspecs, mesh, rank),
+               "v": shard_params(opt["v"], pspecs, mesh, rank),
+               "step": opt["step"]}
+        return None, (params, opt, inputs), rm
+    cap = (s // AUDIO_TGT_FRac if cfg.is_encoder_decoder else s) \
+        if shape.kind == "prefill" else s
+    src = ((s if shape.kind == "prefill" else SRC_LEN)
+           if cfg.is_encoder_decoder else 0)
+    cache = shard_cache(abstract_cache(cfg, b, cap, src_len=src),
+                        cache_specs(cfg, mesh, b, cap, src), mesh, rank)
+    if not rank_program_runs(cfg, shape, mesh):
+        step = None
+    else:
+        model = Model(cfg, device=META, pc=make_pc(cfg, rm, batch=b,
+                                                   cap=cap))
+        if shape.kind == "prefill":
+            def step(params, inputs, cache):
+                return model.prefill(params, inputs, cache)
+        else:
+            def step(params, token, cache):
+                return model.decode_step(params, token, cache)
+    if shape.kind == "prefill":
+        return step, (params, inputs, cache), rm
+    return step, (params, inputs["tokens"], cache), rm

@@ -21,8 +21,9 @@ from __future__ import annotations
 import torch
 
 from ..kernels.ops import decode_attn_auto
+from ..kernels.ref import decode_attn_ref
 from .layers import (_NEG_INF, apply_mrope, apply_rope, attention_core,
-                     rmsnorm)
+                     rmsnorm, row_parallel, tp_splits)
 
 
 def init_attn_cache(cfg, batch: int, cap: int, dtype, device) -> dict:
@@ -57,7 +58,7 @@ def _rope_qk(cfg, q, k, pos, pos3):
 
 def attn_block(p, x, *, cfg, pos, cache, length=None, mode="prefill",
                kernels=None, row_mask=None, window=None, pos3=None,
-               causal=True):
+               causal=True, pc=None):
     """GQA attention. x: (B, S, d); pos: (B, S) absolute positions.
     ``window``: the sliding window of an L layer (None for G layers).
     ``pos3``: (3, B, S) M-RoPE position streams (None: all equal ``pos``).
@@ -82,8 +83,15 @@ def attn_block(p, x, *, cfg, pos, cache, length=None, mode="prefill",
     when ``kernels`` is set.
     ``row_mask`` (decode, (B,) bool): rows where it is False attend with
     their token written, as in the reference, but keep their previous cache
-    contents afterwards. Returns y (B, S, d); the cache is updated in place.
+    contents afterwards. ``pc`` with a mesh: the rank program
+    (``attn_block_mesh``). Returns y (B, S, d); the cache is updated in
+    place.
     """
+    if pc is not None and pc.mesh is not None:
+        return attn_block_mesh(p, x, cfg=cfg, pos=pos, cache=cache,
+                               length=length, mode=mode, kernels=kernels,
+                               row_mask=row_mask, window=window, pos3=pos3,
+                               pc=pc)
     b, s, _ = x.shape
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
@@ -203,7 +211,7 @@ def _mla_qkv(p, x, cfg, pos):
 
 
 def mla_block(p, x, *, cfg, pos, cache, length=None, mode="prefill",
-              kernels=None, row_mask=None, window=None):
+              kernels=None, row_mask=None, window=None, pc=None):
     """MLA attention. x: (B, S, d); pos: (B, S) absolute positions.
 
     mode "train" (no cache) and "prefill" (``length=None`` only): the
@@ -224,8 +232,13 @@ def mla_block(p, x, *, cfg, pos, cache, length=None, mode="prefill",
     and ``window`` (an MLA stack has no sliding-window layers) are taken
     for ``attn_block``'s signature and not read. A prompt above 2048
     tokens prefills through ``flash_attention``, as in the reference.
-    Returns y (B, S, d); the cache is updated in place.
+    ``pc`` with a mesh: the rank program (``mla_block_mesh``). Returns y
+    (B, S, d); the cache is updated in place.
     """
+    if pc is not None and pc.mesh is not None:
+        return mla_block_mesh(p, x, cfg=cfg, pos=pos, cache=cache,
+                              length=length, mode=mode, row_mask=row_mask,
+                              pc=pc)
     m = cfg.mla
     b, s, _ = x.shape
     scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
@@ -292,3 +305,285 @@ def encode_cross_kv(p, enc_out):
     """Cross-attention K/V of the encoder output (once per request)."""
     return {"k": torch.einsum("bsd,dhk->bshk", enc_out, p["wk"]),
             "v": torch.einsum("bsd,dhk->bshk", enc_out, p["wv"])}
+
+
+# ---------------------------------------------------------------------------
+# The rank program (the mesh layout of ``sharding.rules``)
+# ---------------------------------------------------------------------------
+#
+# On a mesh every rank holds its batch rows (``pc.data_axes``), the heads
+# its leaves hold (q and o by the query heads, k and v by the kv heads,
+# each only where the head count divides ``model``) and a KV cache of all
+# kv heads over its shard of the sequence (``pc.seq_axis``). A prefill
+# computes attention over this rank's query heads, then moves K/V from
+# heads to sequence shards; a decode gathers the token's queries and K/V
+# over the heads, attends every head over this rank's positions and
+# merges the shards' partial outputs by their log-sum-exps, the partial
+# softmax GSPMD lowers the reference's seq-sharded decode to
+# (``repro/sharding/rules.py``). The output projection is row-parallel:
+# this rank's heads, then a sum over ``model``.
+
+def _seq_layout(pc, cap_l: int, local: int):
+    """(n, index, c) of a cache of ``cap_l`` global positions of which
+    this rank holds ``local``: n shards of c positions over
+    ``pc.seq_axis``, this rank's the index-th; (1, 0, cap_l) when the
+    sequence is not split."""
+    if local == cap_l:
+        return 1, 0, cap_l
+    n = pc.mesh.axis_size(pc.seq_axis)
+    if local * n != cap_l:
+        raise ValueError(f"a cache shard of {local} positions is not 1/{n} "
+                         f"of {cap_l}")
+    return n, pc.mesh.axis_index(pc.seq_axis), local
+
+
+def _heads(pc, n_heads: int):
+    """(first, count) of the heads this rank's leaves hold: its block of
+    n_heads / tp when the heads split over ``model``, else all."""
+    if tp_splits(pc, n_heads):
+        hq = n_heads // pc.tp
+        return pc.mesh.axis_index(pc.model_axis) * hq, hq
+    return 0, n_heads
+
+
+def _kv_for(k, v, first: int, hq: int, g: int, k_split: bool):
+    """K/V of the kv heads that query heads [first, first + hq) use (head
+    h uses kv head h // g), in a layout ``attention_core`` groups right:
+    this rank's own kv heads when they split too, or all of them when its
+    query heads are all the heads; else one copy per query head."""
+    if k_split or hq == g * k.shape[2]:
+        return k, v
+    idx = (torch.arange(first, first + hq, device=k.device) // g)
+    return k[:, :, idx], v[:, :, idx]
+
+
+def _row_proj(out, wo, pc, n_heads: int):
+    """y = out . wo over this rank's heads, summed over ``model`` when the
+    heads split (row-parallel: ``layers.row_parallel``); ``out`` holds
+    this rank's heads or all."""
+    first, hq = _heads(pc, n_heads)
+    if out.shape[2] != hq:
+        out = out[:, :, first:first + hq]
+    if hq == n_heads:
+        return torch.einsum("bshk,hkd->bsd", out, wo)
+    b, s = out.shape[:2]
+    return row_parallel(out.reshape(b, s, -1), wo.reshape(-1, wo.shape[-1]),
+                        pc)
+
+
+def _to_seq_shards(kv, pc, k_split: bool, cap_l: int, pos, n: int,
+                   f: int, c: int):
+    """This rank's sequence shard (2, B, c, Hkv, D) of a fresh prefill's
+    K and V, from ``kv`` (2, B, S, h, D) over this rank's kv heads
+    (``k_split``) or all of them, laid out over the global ``cap_l``
+    positions (a ring smaller than the prompt keeps its last ``cap_l``
+    tokens at ``pos % cap_l``). Positions past the prompt come back
+    zero; the caller writes only the prompt's. Split heads move to
+    sequence shards with one all-to-all over ``model``."""
+    s = kv.shape[2]
+    if cap_l < s:
+        img = kv.new_empty(kv.shape[:2] + (cap_l,) + kv.shape[3:])
+        img[:, :, pos[0, s - cap_l:] % cap_l] = kv[:, :, s - cap_l:]
+    else:
+        img = torch.nn.functional.pad(
+            kv, (0, 0, 0, 0, 0, cap_l - s)) if cap_l > s else kv
+    if not k_split:
+        return img[:, :, f * c:(f + 1) * c]
+    if n == 1:
+        return pc.mesh.all_gather(img, 3, pc.model_axis)
+    m = pc.tp
+    base = f - pc.mesh.axis_index(pc.model_axis)   # model is the last axis
+    row = img[:, :, base * c:(base + m) * c]
+    return pc.mesh.all_to_all(row, 2, 3, pc.model_axis)
+
+
+def _owner(slot, f: int, c: int, b: int):
+    """(own, local): per batch row, whether this rank's shard [f*c,
+    (f+1)*c) holds global position ``slot`` (a scalar or (B,)), and the
+    position within the shard (clamped into it for the rows it does
+    not)."""
+    slot = slot.reshape(-1).expand(b)
+    local = slot - f * c
+    own = (local >= 0) & (local < c)
+    return own, torch.clamp(local, 0, c - 1)
+
+
+def _write_owned(cache, new, own, lslot):
+    """Write each row's token into its slot where this rank owns it (the
+    others keep theirs); returns the slots' previous contents."""
+    rows = torch.arange(own.shape[0], device=own.device)
+    old = {}
+    for name, t in new.items():
+        prev = cache[name][rows, lslot].clone()
+        keep = own.view((-1,) + (1,) * (prev.ndim - 1))
+        cache[name][rows, lslot] = torch.where(
+            keep, t[:, 0].to(prev.dtype), prev)
+        old[name] = prev
+    return old
+
+
+def _restore_owned(cache, old, own, lslot, row_mask):
+    """Rows ``row_mask`` freezes get their slot's previous contents back on
+    the shard that owns it (``_restore_frozen`` on a shard)."""
+    if row_mask is None:
+        return
+    rows = torch.arange(own.shape[0], device=own.device)
+    back = own & ~row_mask
+    for name, prev in old.items():
+        keep = back.view((-1,) + (1,) * (prev.ndim - 1))
+        cache[name][rows, lslot] = torch.where(keep, prev,
+                                               cache[name][rows, lslot])
+
+
+def merge_partials(out, lse, pc):
+    """Merge the sequence shards' partial attentions: out (B, H, D) and
+    lse (B, H) fp32 of this rank's shard -> the attention over every
+    shard, sum_i exp(lse_i - LSE) out_i with LSE the log-sum-exp of the
+    lse_i (a shard with no live position has lse -inf and weighs 0)."""
+    lses = pc.mesh.all_gather(lse[None], 0, pc.seq_axis)
+    w = torch.exp(lse - torch.logsumexp(lses, 0))
+    return pc.mesh.all_reduce(out.float() * w[..., None],
+                              pc.seq_axis).to(out.dtype)
+
+
+def _decode_lengths(length, cap_l: int, window, b: int):
+    if window is not None and cap_l <= window:
+        slot = torch.remainder(length, cap_l)            # ring
+    else:
+        slot = torch.clamp(length, max=cap_l - 1)
+    valid = torch.clamp(length + 1, max=cap_l).reshape(-1).expand(b)
+    return slot, valid
+
+
+def attn_block_mesh(p, x, *, cfg, pos, cache, length, mode, kernels,
+                    row_mask, window, pos3, pc):
+    """``attn_block``'s prefill (fresh) and decode as the rank program.
+    x: this rank's rows (B, S, d), the same on every ``model`` rank."""
+    if mode not in ("prefill", "decode") or (
+            mode == "prefill" and length is not None):
+        raise ValueError(f"the mesh rank program runs a fresh prefill and "
+                         f"decode, not {mode!r}"
+                         + (" continued at a fill level" if mode == "prefill"
+                            else "") + " (ROADMAP A4)")
+    b, s, _ = x.shape
+    h_all, hkv_all, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g = h_all // hkv_all
+    first, hq = _heads(pc, h_all)
+    k_split = tp_splits(pc, hkv_all)
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    q, k = _rope_qk(cfg, q, k, pos, pos3)
+    cap_l = min(pc.cap, window) if window is not None else pc.cap
+    n, f, c = _seq_layout(pc, cap_l, cache["k"].shape[1])
+
+    if mode == "prefill":
+        ka, va = _kv_for(k, v, first, hq, g, k_split)
+        out = attention_core(q, ka, va, causal_offset=0, valid_len=None,
+                             window=window)
+        shard = _to_seq_shards(torch.stack([k, v]), pc, k_split, cap_l,
+                               pos, n, f, c)
+        live = c if cap_l < s else max(0, min(c, s - f * c))
+        cache["k"][:, :live] = shard[0, :, :live].to(cache["k"].dtype)
+        cache["v"][:, :live] = shard[1, :, :live].to(cache["v"].dtype)
+        return _row_proj(out, p["wo"], pc, h_all)
+
+    if hq != h_all:
+        q = pc.mesh.all_gather(q, 2, pc.model_axis)
+    if k_split:
+        k, v = pc.mesh.all_gather(torch.stack([k, v]), 3, pc.model_axis)
+    slot, valid = _decode_lengths(length, cap_l, window, b)
+    own, lslot = _owner(slot, f, c, b)
+    old = _write_owned(cache, {"k": k, "v": v}, own, lslot)
+    lvalid = torch.clamp(valid - f * c, 0, c)
+    if n == 1:
+        out = (decode_attn_auto(q[:, 0], cache["k"], cache["v"], lvalid)
+               if kernels is not None else
+               attention_core(q, cache["k"], cache["v"], causal_offset=None,
+                              valid_len=lvalid)[:, 0])
+    else:
+        out, lse = (decode_attn_auto(q[:, 0], cache["k"], cache["v"],
+                                     lvalid, return_lse=True)
+                    if kernels is not None else
+                    decode_attn_ref(q[:, 0], cache["k"], cache["v"], lvalid,
+                                    return_lse=True))
+        out = merge_partials(out, lse, pc)
+    _restore_owned(cache, old, own, lslot, row_mask)
+    return _row_proj(out[:, None], p["wo"], pc, h_all)
+
+
+def mla_block_mesh(p, x, *, cfg, pos, cache, length, mode, row_mask, pc):
+    """``mla_block``'s prefill and decode as the rank program: ``wq_a``
+    split over its latent rank is gathered before ``q_norm`` (an rmsnorm
+    over the whole rank); q, ``wk_b``, ``wv_b`` and ``wo`` by heads; the
+    latent cache by sequence, written from the replicated latent. The
+    absorbed decode merges the shards' latent contexts by their
+    log-sum-exps, in plain PyTorch as the unsharded decode is."""
+    if mode not in ("prefill", "decode") or (
+            mode == "prefill" and length is not None):
+        raise ValueError(f"the mesh rank program runs a fresh prefill and "
+                         f"decode, not {mode!r} (ROADMAP A4)")
+    m = cfg.mla
+    b, s, _ = x.shape
+    h_all = cfg.n_heads
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    cq = x @ p["wq_a"]
+    if cq.shape[-1] != m.q_lora_rank:
+        cq = pc.mesh.all_gather(cq, -1, pc.model_axis)
+    cq = rmsnorm(p["q_norm"], cq, cfg.norm_eps)
+    q = torch.einsum("bsr,rhk->bshk", cq, p["wq_b"])
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], -1)
+    q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
+    ckv, k_rope = (x @ p["wkv_a"]).split(
+        [m.kv_lora_rank, m.qk_rope_head_dim], -1)
+    ckv = rmsnorm(p["kv_norm"], ckv, cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], pos, cfg.rope_theta)[:, :, 0]
+    n, f, c = _seq_layout(pc, pc.cap, cache["ckv"].shape[1])
+
+    if mode == "prefill":
+        if pc.cap < s:
+            raise ValueError(f"prefill of {s} tokens exceeds the cache "
+                             f"capacity {pc.cap}")
+        k_nope = torch.einsum("bsr,rhk->bshk", ckv, p["wk_b"])
+        v = torch.einsum("bsr,rhk->bshk", ckv, p["wv_b"])
+        hq = k_nope.shape[2]
+        kk = torch.cat([k_nope, k_rope[:, :, None].expand(
+            b, s, hq, m.qk_rope_head_dim)], -1)
+        qq = torch.cat([q_nope, q_rope], -1)
+        v_pad = torch.nn.functional.pad(v, (0, qq.shape[-1] - m.v_head_dim))
+        out = attention_core(qq, kk, v_pad, causal_offset=0,
+                             valid_len=None)[..., :m.v_head_dim]
+        live = max(0, min(c, s - f * c))
+        cache["ckv"][:, :live] = ckv[:, f * c:f * c + live]
+        cache["k_rope"][:, :live] = k_rope[:, f * c:f * c + live]
+        return _row_proj(out, p["wo"], pc, h_all)
+
+    slot, valid = _decode_lengths(length, pc.cap, None, b)
+    own, lslot = _owner(slot, f, c, b)
+    old = _write_owned(cache, {"ckv": ckv, "k_rope": k_rope}, own, lslot)
+    cckv, ckr = cache["ckv"], cache["k_rope"]
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["wk_b"])  # W^UK
+    hq = q_lat.shape[2]
+    if hq != h_all:
+        q_lat, q_rope = pc.mesh.all_gather(
+            torch.cat([q_lat, q_rope], -1), 2, pc.model_axis).split(
+                [m.kv_lora_rank, m.qk_rope_head_dim], -1)
+    scores = (torch.einsum("bshr,btr->bhst", q_lat, cckv)
+              + torch.einsum("bshk,btk->bhst", q_rope, ckr)) * scale
+    lvalid = torch.clamp(valid - f * c, 0, c)
+    live = (torch.arange(c, device=x.device)
+            < lvalid.reshape(-1, 1)).reshape(-1, 1, 1, c)
+    probs = torch.softmax(torch.where(live, scores, _NEG_INF).float(), -1)
+    ctx = torch.einsum("bhst,btr->bshr", probs.to(cckv.dtype), cckv)
+    if n > 1:
+        lse = torch.logsumexp(torch.where(live, scores.float(), -torch.inf),
+                              -1)[..., 0]                          # (B, H)
+        ctx = merge_partials(ctx[:, 0], lse, pc)[:, None]
+    first, hq = _heads(pc, h_all)
+    ctx = ctx[:, :, first:first + hq]
+    out = torch.einsum("bshr,rhk->bshk", ctx, p["wv_b"])        # W^UV
+    _restore_owned(cache, old, own, lslot, row_mask)
+    return _row_proj(out, p["wo"], pc, h_all)

@@ -36,23 +36,39 @@ class KernelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ParallelContext:
-    """How the MoE layers are laid out over an expert-parallel group (the
-    counterpart of the reference's ``ParallelContext``, EP part).
+    """How the model is laid out (the counterpart of the reference's
+    ``ParallelContext``).
 
-    ``group``: the ``distributed.EPGroup`` whose ranks host the experts in
-    contiguous blocks of E/n (None: one device). ``moe_impl``: "dense" (no
+    Expert parallelism over a group (the EP engines of
+    ``serving.distributed``): ``group`` is the ``distributed.EPGroup``
+    whose ranks host the experts in contiguous blocks of E/n (None: one
+    device); the dense part runs replicated on every rank over the whole
+    batch and cache. ``moe_impl``: "dense" (no
     expert parallelism), "ep" (monolithic all-to-all) or "aurora" (the
     permutation rounds ``aurora_rounds``; round robin while None).
-    ``ep_overlap``: the round-pipelined dispatch
-    (``distributed.overlap``). The reference's mesh axes, tensor
-    parallelism and sequence sharding have no counterpart: the dense part
-    runs replicated on every rank. The port's ``kernels`` and
+    ``ep_overlap``: the round-pipelined dispatch (``distributed.overlap``).
+
+    The mesh layout (``sharding.make_pc`` with a mesh): ``mesh`` is this
+    rank's ``distributed.mesh.RankMesh`` and the model runs as a rank
+    program over this rank's shards. ``data_axes``: the axes the batch
+    shards over (empty: replicated); ``model_axis``: tensor parallelism
+    (heads, d_ff, vocab); ``seq_axis``: the axes the KV caches' sequence
+    shards over; ``ep_axes``: the flat EP axes (``group`` is the mesh's EP
+    group over them); ``batch`` and ``cap``: the global batch and cache
+    capacity the shards divide. The port's ``kernels`` and
     ``replication`` stay on ``Model``."""
 
     group: Any = None
     moe_impl: str = "dense"
     aurora_rounds: tuple[tuple[int, ...], ...] | None = None
     ep_overlap: bool = False
+    mesh: Any = None
+    data_axes: tuple[str, ...] = ()
+    model_axis: str | None = None
+    seq_axis: tuple[str, ...] = ()
+    ep_axes: tuple[str, ...] | None = None
+    batch: int = 0
+    cap: int = 0
 
     def __post_init__(self):
         if self.moe_impl not in ("dense", "ep", "aurora"):
@@ -62,6 +78,13 @@ class ParallelContext:
     @property
     def expert_parallel(self) -> bool:
         return self.group is not None and self.moe_impl in ("ep", "aurora")
+
+    @property
+    def tp(self) -> int:
+        """The tensor-parallel degree (the ``model`` axis size; 1 without
+        a mesh)."""
+        return 1 if self.mesh is None else self.mesh.axis_size(
+            self.model_axis)
 
 
 NO_PARALLEL = ParallelContext()
@@ -262,6 +285,43 @@ def attention_core(q, k, v, *, causal_offset, valid_len, window=None):
     return plain_attention(qg, k, v, mask).reshape(b, sq, h, d)
 
 
-def ffn_apply(p, x, act: str):
+def tp_splits(pc, n: int) -> bool:
+    """Whether a dim of ``n`` splits over the tensor-parallel (``model``)
+    axis of ``pc``'s mesh: the sharding rules' divisibility test, which
+    the rank program evaluates again to know which of its leaves are
+    shards."""
+    return (pc is not None and pc.mesh is not None and pc.tp > 1
+            and n % pc.tp == 0)
+
+
+def row_parallel(a, w, pc):
+    """A row-parallel product over ``model``: this rank's ``a @ w`` over
+    its slice of the contracted (last) dim of ``a``, ``w`` (K, N), summed
+    over the ranks. A half-precision product keeps its fp32 accumulator
+    as its result (``mm``'s ``out_dtype``: the weight is read as it lies,
+    on the tensor cores; CUDA and ``meta`` have it, the CPU does not, so
+    a half-precision rank program runs on the card); the partials are summed in fp32 and rounded to
+    ``a``'s dtype once, as the unsharded product rounds once. So the
+    all-reduce moves fp32, twice the bytes of the reference's lowering,
+    whose partials are summed in the activation dtype."""
+    lead = a.shape[:-1]
+    a2 = a.reshape(-1, a.shape[-1])
+    y = (a2 @ w if a.dtype == torch.float32
+         else torch.mm(a2, w, out_dtype=torch.float32))
+    y = pc.mesh.all_reduce(y.reshape(*lead, w.shape[-1]), pc.model_axis)
+    return y.to(a.dtype)
+
+
+def ffn_apply(p, x, act: str, pc=None, d_ff: int | None = None):
+    """SwiGLU / GeGLU FFN. On a mesh (``pc.mesh``), ``d_ff`` is the global
+    hidden size: when it splits over ``model`` the leaves are this rank's
+    column (``w_gate``, ``w_up``) and row (``w_down``) shards, and the
+    partial outputs are summed over ``model`` (the Megatron pair,
+    ``row_parallel``)."""
     h = act_fn(act)(x @ p["w_gate"]) * (x @ p["w_up"])
+    if pc is not None and pc.mesh is not None:
+        if d_ff is None:
+            raise ValueError("ffn_apply on a mesh needs the global d_ff")
+        if tp_splits(pc, d_ff):
+            return row_parallel(h, p["w_down"], pc)
     return h @ p["w_down"]

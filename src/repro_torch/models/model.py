@@ -16,6 +16,7 @@ import dataclasses
 
 import torch
 
+from ..bridge import map_tree
 from . import transformer as tf
 from .layers import KernelConfig, ParallelContext
 from .moe import ReplicationSpec
@@ -40,6 +41,13 @@ class Model:
 
     def __post_init__(self):
         object.__setattr__(self, "device", resolve_device(self.device))
+        cfg = self.cfg
+        if self.pc is not None and self.pc.tp > 1 and (
+                cfg.family in ("ssm", "hybrid") or cfg.is_encoder_decoder):
+            raise ValueError(
+                f"{cfg.arch_id}: the mesh rank program of the SSM, hybrid "
+                "and encoder-decoder families is not ported (ROADMAP A4); "
+                "their mesh sizes come from the specs alone")
 
     # -- params / cache ----------------------------------------------------
     def init(self, seed: int = 0) -> dict:
@@ -58,9 +66,26 @@ class Model:
     def init_cache(self, batch: int, cap: int, src_len: int = 0,
                    per_slot_len: bool = False):
         """``src_len``: the source positions of an encoder-decoder's cross
-        K/V (0 for every other family)."""
-        return tf.init_cache(self.cfg, batch, cap, src_len=src_len,
-                             per_slot_len=per_slot_len, device=self.device)
+        K/V (0 for every other family). With a mesh ``pc``, ``batch`` and
+        ``cap`` are global and the cache is this rank's zero shard under
+        ``sharding.cache_specs`` (they must be the ``pc``'s)."""
+        pc = self.pc
+        if pc is None or pc.mesh is None:
+            return tf.init_cache(self.cfg, batch, cap, src_len=src_len,
+                                 per_slot_len=per_slot_len,
+                                 device=self.device)
+        from ..bridge import shard_cache
+        from ..sharding import cache_specs
+        if (batch, cap) != (pc.batch, pc.cap):
+            raise ValueError(f"the mesh pc is laid out for batch {pc.batch} "
+                             f"and cap {pc.cap}, not {batch} and {cap}")
+        full = tf.init_cache(self.cfg, batch, cap, src_len=src_len,
+                             per_slot_len=per_slot_len, device="meta")
+        shard = shard_cache(full, cache_specs(self.cfg, pc.mesh, batch, cap,
+                                              src_len), pc.mesh,
+                            pc.mesh.rank)
+        return map_tree(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                              device=self.device), shard)
 
     @property
     def padded_vocab(self) -> int:
@@ -88,6 +113,9 @@ class Model:
                              "without with_kernels)")
         if self.pc is not None and self.pc.expert_parallel:
             raise ValueError("expert-parallel training is not ported")
+        if self.pc is not None and self.pc.mesh is not None:
+            raise ValueError("sharded training on a mesh is not ported "
+                             "(ROADMAP A5)")
         if self.replication is not None:
             raise ValueError("replicated experts cannot be trained: their "
                              "copies would drift apart")

@@ -517,14 +517,99 @@ def moe_apply_ep(p, x, moe, act: str, pc: ParallelContext,
     return y.reshape(shape), aux
 
 
+def _token_slice(xt, pc):
+    """This rank's slice of the flat token axis, as the reference shards it
+    over every mesh axis (``P(token_axes)``, T padded to a multiple of the
+    device count). xt: this rank's rows (t_row, d). Returns (slice,
+    valid, gather back): ``gather back`` maps the slice's outputs to this
+    rank's rows. When the batch splits over every axis but ``model`` and
+    the rows divide over ``model``, the slice is a block of this rank's
+    own rows (no exchange); otherwise the tokens are gathered over the
+    batch axes first and the outputs over the whole mesh."""
+    mesh = pc.mesh
+    t_row, d = xt.shape
+    data = pc.data_axes
+    nb = mesh.axis_size(data) if data else 1
+    n_tok = mesh.layout.size
+    m = pc.tp
+    if nb * m == n_tok and t_row % m == 0:
+        t_loc = t_row // m
+        mi = mesh.axis_index(pc.model_axis)
+        valid = torch.ones(t_loc, dtype=torch.bool, device=xt.device)
+        return (xt[mi * t_loc:(mi + 1) * t_loc], valid,
+                lambda y: mesh.all_gather(y, 0, pc.model_axis))
+    xg = mesh.all_gather(xt, 0, data) if data else xt
+    t = xg.shape[0]
+    t_loc = -(-t // n_tok)
+    f = mesh.axis_index(mesh.axis_names)
+    if t_loc * n_tok != t:
+        xg = torch.nn.functional.pad(xg, (0, 0, 0, t_loc * n_tok - t))
+    valid = torch.arange(f * t_loc, (f + 1) * t_loc, device=xt.device) < t
+    bi = mesh.axis_index(data) if data else 0
+
+    def back(y):
+        return mesh.all_gather(y, 0, mesh.axis_names)[
+            bi * t_row:(bi + 1) * t_row]
+    return xg[f * t_loc:(f + 1) * t_loc], valid, back
+
+
+def moe_apply_mesh(p, x, moe, act: str, pc: ParallelContext,
+                   kernels: KernelConfig | None = None):
+    """The MoE layer as the rank program. x: this rank's rows (..., d), the
+    same on every ``model`` rank. With experts over ``pc.ep_axes`` (this
+    rank holds its block of E/|ep|), the flat token axis shards over the
+    whole mesh (``_token_slice``) and the EP rank body
+    (``alltoall._local_dispatch_combine``, or the pipelined one) runs over
+    the mesh's EP group, ``moe_gmm`` for the rank's experts when
+    ``kernels`` is given; the outputs are gathered back to the rows.
+    Without EP (the experts do not shard), every rank dispatches the
+    global batch densely over the replicated experts, as the reference's
+    dense path does over the whole batch. The shared expert is
+    tensor-parallel over ``model`` (``ffn_apply``). Returns (y, aux)."""
+    from ..distributed.alltoall import (_local_dispatch_combine,
+                                        resolve_ep_rounds)
+    shape = x.shape
+    d = shape[-1]
+    xt = x.reshape(-1, d)
+    mesh = pc.mesh
+    if pc.expert_parallel:
+        xs, valid, back = _token_slice(xt, pc)
+        group = pc.group
+        if pc.ep_overlap:
+            from ..distributed.overlap import \
+                pipelined_local_dispatch_combine as body
+        else:
+            body = _local_dispatch_combine
+        ys, auxes, _ = body([xs], [valid], p["router"], p["experts"], moe,
+                            act, group, resolve_ep_rounds(pc, group.n),
+                            kernels=kernels)
+        y, aux = back(ys[0]), group.mean(auxes)
+    else:
+        data = pc.data_axes
+        xg = mesh.all_gather(xt, 0, data) if data else xt
+        bi = mesh.axis_index(data) if data else 0
+        yg, aux = moe_apply_dense({k: v for k, v in p.items()
+                                   if k != "shared"}, xg, moe, act)
+        y = yg[bi * xt.shape[0]:(bi + 1) * xt.shape[0]]
+    if "shared" in p:
+        y = y + ffn_apply(p["shared"], xt, act, pc,
+                          d_ff=moe.shared_d_ff or moe.d_ff)
+    return y.reshape(shape), aux
+
+
 def moe_apply(p, x, moe, act: str, kernels: KernelConfig | None = None,
               return_counts: bool = False,
               replication: ReplicationSpec | None = None,
               pc: ParallelContext | None = None):
-    """Expert-parallel dispatch when ``pc`` spans an EP group ("ep" or
-    "aurora"), else the kernel dispatch when a ``KernelConfig`` is
-    attached, else dense; ``replication`` is the physical layout of
-    ``p``'s expert leaves."""
+    """The rank program's layer when ``pc`` has a mesh; expert-parallel
+    dispatch when ``pc`` spans an EP group ("ep" or "aurora"), else the
+    kernel dispatch when a ``KernelConfig`` is attached, else dense;
+    ``replication`` is the physical layout of ``p``'s expert leaves."""
+    if pc is not None and pc.mesh is not None:
+        if return_counts or replication is not None:
+            raise ValueError("routing counts and replicated experts are not "
+                             "ported to the mesh layout (ROADMAP A4)")
+        return moe_apply_mesh(p, x, moe, act, pc, kernels)
     if pc is not None and pc.expert_parallel:
         return moe_apply_ep(p, x, moe, act, pc, kernels,
                             return_counts=return_counts,

@@ -334,11 +334,12 @@ def _apply_layer(kind, p, x, entry, *, cfg, kernels, mode, pos, length,
             y = ssm_mod.mamba_block(p["mamba"], h, cfg, entry)
         return x + y, zero, None
     pp = shared if kind == "A" else p
+    mesh_pc = pc if pc is not None and pc.mesh is not None else None
     h = rmsnorm(pp["ln1"], x, cfg.norm_eps)
     if cfg.mla is not None:
         y = attn_mod.mla_block(pp["attn"], h, cfg=cfg, pos=pos, cache=entry,
                                length=length, mode=mode, kernels=kernels,
-                               row_mask=row_mask)
+                               row_mask=row_mask, pc=mesh_pc)
     else:
         # A C entry hands attention its self-attention K/V only, so a
         # frozen row's restore never touches the cross K/V.
@@ -349,7 +350,7 @@ def _apply_layer(kind, p, x, entry, *, cfg, kernels, mode, pos, length,
             pp["attn"], h, cfg=cfg, pos=pos, cache=attn_cache, length=length,
             mode=mode, kernels=kernels, row_mask=row_mask,
             window=cfg.sliding_window if kind == "L" else None, pos3=pos3,
-            causal=kind != "B")
+            causal=kind != "B", pc=mesh_pc)
     x = x + y
     if kind == "C":
         hx = rmsnorm(p["ln_x"], x, cfg.norm_eps)
@@ -371,7 +372,8 @@ def _apply_layer(kind, p, x, entry, *, cfg, kernels, mode, pos, length,
         y2, aux = moe_apply(p["moe"], h2, cfg.moe, cfg.act, kernels,
                             replication=replication, pc=pc)
     else:
-        y2, aux = ffn_apply(pp["ffn"], h2, cfg.act), zero
+        d_ff = cfg.moe.dense_d_ff if kind == "D" else cfg.d_ff
+        y2, aux = ffn_apply(pp["ffn"], h2, cfg.act, mesh_pc, d_ff), zero
     return x + y2, aux, counts
 
 
@@ -434,10 +436,14 @@ def forward(params, cfg, *, tokens=None, mode, cache=None, kernels=None,
     (``moe.ReplicationSpec``); the counts stay in the logical frame.
     ``pc``: the expert-parallel layout (``layers.ParallelContext``): the
     MoE layers dispatch over its EP group, everything else runs replicated
-    over the whole batch.
+    over the whole batch. A ``pc`` with a mesh runs the rank program
+    instead: params, cache and inputs are this rank's shards
+    (``sharding.rules``), the embedding is a masked lookup of this rank's
+    vocab rows summed over ``model``, the logits come back gathered over
+    the vocab, and the layers run their mesh forms.
     """
     if cfg.is_encoder_decoder or cfg.input_mode == "text" or embeds is None:
-        x = params["embed"][tokens]
+        x = _embed(params["embed"], tokens, cfg, pc)
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                              device=x.device)
     else:
@@ -482,6 +488,8 @@ def forward(params, cfg, *, tokens=None, mode, cache=None, kernels=None,
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = x @ head.to(x.dtype)
+    if head.shape[1] != padded_vocab(cfg):        # the vocab over ``model``
+        logits = pc.mesh.all_gather(logits, -1, pc.model_axis)
     if mode == "decode":
         inc = (row_mask.to(torch.int32) if row_mask is not None else 1)
         cache["len"] += inc
@@ -492,6 +500,19 @@ def forward(params, cfg, *, tokens=None, mode, cache=None, kernels=None,
             (0, b, s, 0), dtype=torch.float32, device=x.device))
         return logits, aux_total, moe_stats
     return logits, aux_total
+
+
+def _embed(embed, tokens, cfg, pc):
+    """The embedding rows of ``tokens``: a lookup, or on a mesh whose
+    ``model`` axis splits the vocab, a lookup of this rank's rows (zero
+    for tokens outside them) summed over ``model``."""
+    n = embed.shape[0]
+    if n == padded_vocab(cfg):
+        return embed[tokens]
+    local = tokens.long() - pc.mesh.axis_index(pc.model_axis) * n
+    inside = ((local >= 0) & (local < n))[..., None]
+    x = torch.where(inside, embed[torch.clamp(local, 0, n - 1)], 0.0)
+    return pc.mesh.all_reduce(x, pc.model_axis)
 
 
 def _block(kinds, seg_params, seg_cache, blk, x, **layer_kw):
