@@ -35,11 +35,10 @@ program. The row-parallel partial sums travel in fp32
 them in the activation dtype, so their all-reduces count twice its
 bytes. Rank 0 stands for every device: the rules split a dim only where
 its axes divide it, so every rank holds the same shapes. Train steps (no
-rank-program backward: ROADMAP A5) and the serving steps of the SSM,
-hybrid and encoder-decoder families (their rank program is ROADMAP A4)
-keep exact arguments from the shards and take FLOPs, temp and outputs
-from the one-card trace as upper bounds, with no collective bytes. Each
-record says which of its figures are traced and which are reckoned.
+rank-program backward: ROADMAP A5) keep exact arguments from the shards
+and take FLOPs, temp and outputs from the one-card trace as upper
+bounds, with no collective bytes. Each record says which of its figures
+are traced and which are reckoned.
 
 A pair that cannot be traced is reported ``FAILED`` with its traceback,
 and the run exits 1; nothing is replaced by an analytic guess.
@@ -281,7 +280,7 @@ def run_mesh_pair(cfg_or_arch, shape, multi_pods=(False,),
                   out_dir: str | None = None) -> list:
     """The per-device records of one (config x shape) on the reference's
     production meshes, one for each of ``multi_pods`` (False: 16 x 16,
-    True: 2 x 16 x 16). The one-card trace that a train or deferred pair
+    True: 2 x 16 x 16). The one-card trace that a train pair
     falls back to is made once for all of them."""
     from ..configs import SHAPES, get_config
     from . import specs as S
@@ -334,9 +333,7 @@ def _mesh_record(cfg, shape, name: str, n_dev: int, tr: dict, arg_b: int,
                     "bytes of the reference's, which sums them in the "
                     "activation dtype"}
     else:
-        why = ("sharded training has no rank program yet (ROADMAP A5)"
-               if shape.kind == "train" else
-               "this family's rank program waits (ROADMAP A4)")
+        why = "sharded training has no rank program yet (ROADMAP A5)"
         figures = {
             "traced": [],
             "exact": ["memory.argument_size_in_bytes"],

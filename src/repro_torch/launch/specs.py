@@ -125,16 +125,6 @@ def step_args(cfg, shape):
 # production meshes)
 # ---------------------------------------------------------------------------
 
-def rank_program_runs(cfg, shape, mesh) -> bool:
-    """Whether rank 0's step of this pair is traced on the mesh: serving
-    steps only (sharded training is ROADMAP A5), and not for the SSM,
-    hybrid and encoder-decoder families once ``model`` splits (their rank
-    program is ROADMAP A4)."""
-    deferred = cfg.family in ("ssm", "hybrid") or cfg.is_encoder_decoder
-    return shape.kind != "train" and not (
-        deferred and mesh.shape["model"] > 1)
-
-
 def _shard_inputs(cfg, inputs, mesh, rank: int, batch: int) -> dict:
     from ..bridge import shard_tensor
     from ..sharding import input_sharding
@@ -148,10 +138,11 @@ def lowering_args(cfg, shape, mesh):
     moments at train (they lie like the params), of the cache and of the
     inputs, on ``meta`` (the reference's ``lowering_args`` on a mesh).
     ``step_fn`` runs the rank program over a ``CountingMesh``
-    (``rank_mesh``), which counts its collective bytes; it is None where
-    ``rank_program_runs`` is false (the arguments are still this rank's).
-    Rank 0 stands for every rank: the rules split a dim only where its
-    axes divide it, so every rank holds the same shapes."""
+    (``rank_mesh``), which counts its collective bytes; it is None at
+    train, which has no rank program yet (ROADMAP A5; the arguments are
+    still this rank's). Rank 0 stands for every rank: the rules split a
+    dim only where its axes divide it, so every rank holds the same
+    shapes."""
     from ..bridge import shard_cache, shard_params
     from ..distributed.mesh import CountingMesh
     from ..sharding import cache_specs, make_pc, param_specs
@@ -173,17 +164,14 @@ def lowering_args(cfg, shape, mesh):
            if cfg.is_encoder_decoder else 0)
     cache = shard_cache(abstract_cache(cfg, b, cap, src_len=src),
                         cache_specs(cfg, mesh, b, cap, src), mesh, rank)
-    if not rank_program_runs(cfg, shape, mesh):
-        step = None
+    model = Model(cfg, device=META, pc=make_pc(cfg, rm, batch=b, cap=cap,
+                                               src_len=src))
+    if shape.kind == "prefill":
+        def step(params, inputs, cache):
+            return model.prefill(params, inputs, cache)
     else:
-        model = Model(cfg, device=META, pc=make_pc(cfg, rm, batch=b,
-                                                   cap=cap))
-        if shape.kind == "prefill":
-            def step(params, inputs, cache):
-                return model.prefill(params, inputs, cache)
-        else:
-            def step(params, token, cache):
-                return model.decode_step(params, token, cache)
+        def step(params, token, cache):
+            return model.decode_step(params, token, cache)
     if shape.kind == "prefill":
         return step, (params, inputs, cache), rm
     return step, (params, inputs["tokens"], cache), rm

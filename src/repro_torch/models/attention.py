@@ -91,7 +91,7 @@ def attn_block(p, x, *, cfg, pos, cache, length=None, mode="prefill",
         return attn_block_mesh(p, x, cfg=cfg, pos=pos, cache=cache,
                                length=length, mode=mode, kernels=kernels,
                                row_mask=row_mask, window=window, pos3=pos3,
-                               pc=pc)
+                               causal=causal, pc=pc)
     b, s, _ = x.shape
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
@@ -292,19 +292,41 @@ def mla_block(p, x, *, cfg, pos, cache, length=None, mode="prefill",
 # Cross-attention (encoder-decoder)
 # ---------------------------------------------------------------------------
 
-def cross_attn_block(p, x, enc_kv):
+def cross_attn_block(p, x, enc_kv, *, cfg=None, pc=None, decode=False):
     """Decoder cross-attention over precomputed encoder K/V
-    ``{"k", "v"}`` (B, S_src, Hkv, D), every source position visible."""
+    ``{"k", "v"}`` (B, S_src, Hkv, D), every source position visible.
+    ``pc`` with a mesh: the rank program (``cross_attn_block_mesh``), which
+    reads ``cfg`` and whether this is a ``decode``."""
+    if pc is not None and pc.mesh is not None:
+        return cross_attn_block_mesh(p, x, enc_kv, cfg=cfg, pc=pc,
+                                     decode=decode)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     out = attention_core(q, enc_kv["k"], enc_kv["v"], causal_offset=None,
                          valid_len=None)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
-def encode_cross_kv(p, enc_out):
-    """Cross-attention K/V of the encoder output (once per request)."""
-    return {"k": torch.einsum("bsd,dhk->bshk", enc_out, p["wk"]),
-            "v": torch.einsum("bsd,dhk->bshk", enc_out, p["wv"])}
+def encode_cross_kv(p, enc_out, cache=None, *, cfg=None, pc=None):
+    """Cross-attention K/V of the encoder output (once per request),
+    written into ``cache``'s ``xk``/``xv`` when a cache is given. On a mesh
+    (``pc.mesh``) they are the kv heads of this rank's ``wk``/``wv``
+    leaves over every source position, and the cache takes its sequence
+    shard of every kv head (``_to_seq_shards``)."""
+    kv = {"k": torch.einsum("bsd,dhk->bshk", enc_out, p["wk"]),
+          "v": torch.einsum("bsd,dhk->bshk", enc_out, p["wv"])}
+    if cache is None:
+        return kv
+    if pc is None or pc.mesh is None:
+        cache["xk"].copy_(kv["k"])
+        cache["xv"].copy_(kv["v"])
+        return kv
+    src = enc_out.shape[1]
+    n, f, c = _seq_layout(pc, src, cache["xk"].shape[1])
+    shard = _to_seq_shards(torch.stack([kv["k"], kv["v"]]), pc,
+                           tp_splits(pc, cfg.n_kv_heads), src, None, n, f, c)
+    cache["xk"].copy_(shard[0])
+    cache["xv"].copy_(shard[1])
+    return kv
 
 
 # ---------------------------------------------------------------------------
@@ -321,7 +343,10 @@ def encode_cross_kv(p, enc_out):
 # merges the shards' partial outputs by their log-sum-exps, the partial
 # softmax GSPMD lowers the reference's seq-sharded decode to
 # (``repro/sharding/rules.py``). The output projection is row-parallel:
-# this rank's heads, then a sum over ``model``.
+# this rank's heads, then a sum over ``model``. The cacheless forward (the
+# encoder's bidirectional layers) attends over this rank's query heads as
+# a prefill does; cross-attention keeps its encoder K/V over the source
+# sequence as the self-attention cache keeps its K/V.
 
 def _seq_layout(pc, cap_l: int, local: int):
     """(n, index, c) of a cache of ``cap_l`` global positions of which
@@ -456,13 +481,15 @@ def _decode_lengths(length, cap_l: int, window, b: int):
 
 
 def attn_block_mesh(p, x, *, cfg, pos, cache, length, mode, kernels,
-                    row_mask, window, pos3, pc):
-    """``attn_block``'s prefill (fresh) and decode as the rank program.
-    x: this rank's rows (B, S, d), the same on every ``model`` rank."""
-    if mode not in ("prefill", "decode") or (
+                    row_mask, window, pos3, causal=True, pc):
+    """``attn_block``'s cacheless "train" mode (causal, or bidirectional
+    with ``causal=False``: the encoder's layers), fresh prefill and decode
+    as the rank program. x: this rank's rows (B, S, d), the same on every
+    ``model`` rank."""
+    if mode not in ("train", "prefill", "decode") or (
             mode == "prefill" and length is not None):
-        raise ValueError(f"the mesh rank program runs a fresh prefill and "
-                         f"decode, not {mode!r}"
+        raise ValueError(f"the mesh rank program runs the cacheless "
+                         f"forward, a fresh prefill and decode, not {mode!r}"
                          + (" continued at a fill level" if mode == "prefill"
                             else "") + " (ROADMAP A4)")
     b, s, _ = x.shape
@@ -477,13 +504,16 @@ def attn_block_mesh(p, x, *, cfg, pos, cache, length, mode, kernels,
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
     q, k = _rope_qk(cfg, q, k, pos, pos3)
+    if mode != "decode":
+        ka, va = _kv_for(k, v, first, hq, g, k_split)
+        out = attention_core(q, ka, va, causal_offset=0 if causal else None,
+                             valid_len=None, window=window)
+        if mode == "train":
+            return _row_proj(out, p["wo"], pc, h_all)
     cap_l = min(pc.cap, window) if window is not None else pc.cap
     n, f, c = _seq_layout(pc, cap_l, cache["k"].shape[1])
 
     if mode == "prefill":
-        ka, va = _kv_for(k, v, first, hq, g, k_split)
-        out = attention_core(q, ka, va, causal_offset=0, valid_len=None,
-                             window=window)
         shard = _to_seq_shards(torch.stack([k, v]), pc, k_split, cap_l,
                                pos, n, f, c)
         live = c if cap_l < s else max(0, min(c, s - f * c))
@@ -513,6 +543,36 @@ def attn_block_mesh(p, x, *, cfg, pos, cache, length, mode, kernels,
         out = merge_partials(out, lse, pc)
     _restore_owned(cache, old, own, lslot, row_mask)
     return _row_proj(out[:, None], p["wo"], pc, h_all)
+
+
+def cross_attn_block_mesh(p, x, enc_kv, *, cfg, pc, decode):
+    """``cross_attn_block`` as the rank program, in plain PyTorch as the
+    unsharded one is. At prefill ``enc_kv`` is ``encode_cross_kv``'s
+    (this rank's kv heads, every source position) and this rank's query
+    heads attend it. At decode it is the cache's ``xk``/``xv``: this
+    rank's shard of ``pc.src_len`` source positions, every kv head; the
+    queries are gathered over the heads, attend the shard and the shards'
+    partial attentions are merged by their log-sum-exps
+    (``merge_partials``). A source that is not split is attended by this
+    rank's query heads, as at prefill. The output projection is
+    row-parallel."""
+    h_all, hkv_all = cfg.n_heads, cfg.n_kv_heads
+    first, hq = _heads(pc, h_all)
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k, v = enc_kv["k"], enc_kv["v"]
+    n, _, c = (_seq_layout(pc, pc.src_len, k.shape[1]) if decode
+               else (1, 0, k.shape[1]))
+    if n == 1:           # every source position here: this rank's heads
+        ka, va = _kv_for(k, v, first, hq, h_all // hkv_all,
+                         not decode and tp_splits(pc, hkv_all))
+        out = attention_core(q, ka, va, causal_offset=None, valid_len=None)
+        return _row_proj(out, p["wo"], pc, h_all)
+    if hq != h_all:
+        q = pc.mesh.all_gather(q, 2, pc.model_axis)
+    full = torch.full((q.shape[0],), c, dtype=torch.int32, device=q.device)
+    out, lse = decode_attn_ref(q[:, 0], k, v, full, return_lse=True)
+    out = merge_partials(out, lse, pc)[:, None]
+    return _row_proj(out, p["wo"], pc, h_all)
 
 
 def mla_block_mesh(p, x, *, cfg, pos, cache, length, mode, row_mask, pc):

@@ -52,10 +52,12 @@ class ParallelContext:
     rank's ``distributed.mesh.RankMesh`` and the model runs as a rank
     program over this rank's shards. ``data_axes``: the axes the batch
     shards over (empty: replicated); ``model_axis``: tensor parallelism
-    (heads, d_ff, vocab); ``seq_axis``: the axes the KV caches' sequence
-    shards over; ``ep_axes``: the flat EP axes (``group`` is the mesh's EP
-    group over them); ``batch`` and ``cap``: the global batch and cache
-    capacity the shards divide. The port's ``kernels`` and
+    (heads, d_ff, vocab, mamba's projections, conv channels and heads);
+    ``seq_axis``: the axes the KV caches' sequence shards over (the cross
+    K/V's source sequence too); ``ep_axes``: the flat EP axes (``group``
+    is the mesh's EP group over them); ``batch``, ``cap`` and ``src_len``:
+    the global batch, cache capacity and an encoder-decoder's source
+    positions that the shards divide. The port's ``kernels`` and
     ``replication`` stay on ``Model``."""
 
     group: Any = None
@@ -69,6 +71,7 @@ class ParallelContext:
     ep_axes: tuple[str, ...] | None = None
     batch: int = 0
     cap: int = 0
+    src_len: int = 0
 
     def __post_init__(self):
         if self.moe_impl not in ("dense", "ep", "aurora"):

@@ -41,13 +41,6 @@ class Model:
 
     def __post_init__(self):
         object.__setattr__(self, "device", resolve_device(self.device))
-        cfg = self.cfg
-        if self.pc is not None and self.pc.tp > 1 and (
-                cfg.family in ("ssm", "hybrid") or cfg.is_encoder_decoder):
-            raise ValueError(
-                f"{cfg.arch_id}: the mesh rank program of the SSM, hybrid "
-                "and encoder-decoder families is not ported (ROADMAP A4); "
-                "their mesh sizes come from the specs alone")
 
     # -- params / cache ----------------------------------------------------
     def init(self, seed: int = 0) -> dict:
@@ -66,9 +59,10 @@ class Model:
     def init_cache(self, batch: int, cap: int, src_len: int = 0,
                    per_slot_len: bool = False):
         """``src_len``: the source positions of an encoder-decoder's cross
-        K/V (0 for every other family). With a mesh ``pc``, ``batch`` and
-        ``cap`` are global and the cache is this rank's zero shard under
-        ``sharding.cache_specs`` (they must be the ``pc``'s)."""
+        K/V (0 for every other family). With a mesh ``pc``, ``batch``,
+        ``cap`` and ``src_len`` are global and the cache is this rank's
+        zero shard under ``sharding.cache_specs`` (they must be the
+        ``pc``'s)."""
         pc = self.pc
         if pc is None or pc.mesh is None:
             return tf.init_cache(self.cfg, batch, cap, src_len=src_len,
@@ -76,9 +70,10 @@ class Model:
                                  device=self.device)
         from ..bridge import shard_cache
         from ..sharding import cache_specs
-        if (batch, cap) != (pc.batch, pc.cap):
-            raise ValueError(f"the mesh pc is laid out for batch {pc.batch} "
-                             f"and cap {pc.cap}, not {batch} and {cap}")
+        if (batch, cap, src_len) != (pc.batch, pc.cap, pc.src_len):
+            raise ValueError(f"the mesh pc is laid out for batch {pc.batch}, "
+                             f"cap {pc.cap} and src_len {pc.src_len}, not "
+                             f"{batch}, {cap} and {src_len}")
         full = tf.init_cache(self.cfg, batch, cap, src_len=src_len,
                              per_slot_len=per_slot_len, device="meta")
         shard = shard_cache(full, cache_specs(self.cfg, pc.mesh, batch, cap,
@@ -143,7 +138,7 @@ class Model:
         aggregating)."""
         enc_out = None
         if self.cfg.is_encoder_decoder:
-            enc_out = tf.encode(params, self.cfg, inputs["frames"])
+            enc_out = tf.encode(params, self.cfg, inputs["frames"], self.pc)
         out = tf.forward(params, self.cfg, tokens=inputs.get("tokens"),
                          embeds=inputs.get("embeds"), enc_out=enc_out,
                          mode="prefill", cache=cache, kernels=self.kernels,

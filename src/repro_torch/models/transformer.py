@@ -323,18 +323,19 @@ def _apply_layer(kind, p, x, entry, *, cfg, kernels, mode, pos, length,
     output a C layer's prefill attends (its decode reads the cached cross
     K/V)."""
     zero = x.new_zeros((), dtype=torch.float32)
+    mesh_pc = pc if pc is not None and pc.mesh is not None else None
     if kind == "M":
         h = rmsnorm(p["ln"], x, cfg.norm_eps)
         if mode == "decode":
-            y = ssm_mod.mamba_decode(p["mamba"], h, cfg, entry, row_mask)
+            y = ssm_mod.mamba_decode(p["mamba"], h, cfg, entry, row_mask,
+                                     pc=mesh_pc)
         else:
             # A prefill starts from the entry's conv window and state and
             # writes the final ones back: a chunked continuation is the
             # same code as a fresh prefill (whose entry is zero).
-            y = ssm_mod.mamba_block(p["mamba"], h, cfg, entry)
+            y = ssm_mod.mamba_block(p["mamba"], h, cfg, entry, pc=mesh_pc)
         return x + y, zero, None
     pp = shared if kind == "A" else p
-    mesh_pc = pc if pc is not None and pc.mesh is not None else None
     h = rmsnorm(pp["ln1"], x, cfg.norm_eps)
     if cfg.mla is not None:
         y = attn_mod.mla_block(pp["attn"], h, cfg=cfg, pos=pos, cache=entry,
@@ -356,12 +357,13 @@ def _apply_layer(kind, p, x, entry, *, cfg, kernels, mode, pos, length,
         hx = rmsnorm(p["ln_x"], x, cfg.norm_eps)
         if mode == "decode":
             kv = {"k": entry["xk"], "v": entry["xv"]}
-        else:            # fresh cross K/V from the encoder output
-            kv = attn_mod.encode_cross_kv(p["xattn"], enc_out)
-            if entry is not None:        # sized by init_cache(src_len=)
-                entry["xk"].copy_(kv["k"])
-                entry["xv"].copy_(kv["v"])
-        x = x + attn_mod.cross_attn_block(p["xattn"], hx, kv)
+        else:            # fresh cross K/V from the encoder output, written
+            # into the entry's xk/xv (sized by init_cache(src_len=))
+            kv = attn_mod.encode_cross_kv(p["xattn"], enc_out, entry,
+                                          cfg=cfg, pc=mesh_pc)
+        x = x + attn_mod.cross_attn_block(p["xattn"], hx, kv, cfg=cfg,
+                                          pc=mesh_pc,
+                                          decode=mode == "decode")
     h2 = rmsnorm(pp["ln2"], x, cfg.norm_eps)
     counts = None
     if kind == "E" and collect_stats:
@@ -386,10 +388,12 @@ def _frontend(params, inputs):
     return inputs.to(proj.dtype) @ proj
 
 
-def encode(params, cfg, frames):
+def encode(params, cfg, frames, pc=None):
     """Encoder stack (audio): frames (B, S_src, frontend_dim) -> (B, S_src,
     d): the frontend projection, the bidirectional B layers (cacheless),
-    the encoder's final norm."""
+    the encoder's final norm. ``pc`` with a mesh: the rank program over
+    this rank's rows of the frames and its leaves (head-parallel
+    attention, the FFN's column/row pair)."""
     x = _frontend(params, frames)
     b, s = x.shape[:2]
     pos = torch.arange(s, device=x.device)[None].expand(b, s)
@@ -397,7 +401,7 @@ def encode(params, cfg, frames):
     for blk in range(cfg.n_encoder_layers):
         x, _, _ = _apply_layer("B", _index_tree(seg_params, blk), x, None,
                                cfg=cfg, kernels=None, mode="train", pos=pos,
-                               length=None, row_mask=None)
+                               length=None, row_mask=None, pc=pc)
     return rmsnorm(params["encoder"]["final_norm"], x, cfg.norm_eps)
 
 

@@ -217,13 +217,14 @@ def input_sharding(cfg, mesh, batch: int) -> tuple:
 
 
 def make_pc(cfg, mesh, moe_impl: str = "ep", aurora_rounds=None, *,
-            batch: int | None = None, cap: int | None = None
-            ) -> ParallelContext:
+            batch: int | None = None, cap: int | None = None,
+            src_len: int = 0) -> ParallelContext:
     """ParallelContext for this (config, mesh).
 
     ``mesh`` a bound mesh (``distributed.mesh.RankMesh``): the rank
-    program's layout for a batch of ``batch`` rows and a cache of ``cap``
-    positions (both global): batch axes and cache sequence axes as
+    program's layout for a batch of ``batch`` rows, a cache of ``cap``
+    positions and, for an encoder-decoder, cross K/V of ``src_len``
+    source positions (all global): batch axes and cache sequence axes as
     ``input_sharding`` and ``cache_specs`` give them, tensor parallelism
     over ``model``, and the experts over ``ep_axes_for``'s axes through
     the mesh's EP group ("ep" or "aurora"; dense dispatch when the experts
@@ -249,4 +250,4 @@ def make_pc(cfg, mesh, moe_impl: str = "ep", aurora_rounds=None, *,
         group=group, moe_impl=impl, aurora_rounds=aurora_rounds, mesh=mesh,
         data_axes=batch_ax or (), model_axis="model",
         seq_axis=(seq,) if isinstance(seq, str) else seq, ep_axes=ep,
-        batch=batch, cap=cap)
+        batch=batch, cap=cap, src_len=src_len)

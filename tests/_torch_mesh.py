@@ -2,8 +2,10 @@
 (``test_torch_mesh_model``).
 
 - ``rank_body``: one rank of the rank program (the reduced model's
-  carried weights cut to this rank's shards, a prefill and greedy decode
-  steps); it imports only torch, numpy and the port.
+  carried weights cut to this rank's shards, a prefill of this rank's
+  rows of the inputs, the tokens and an encoder-decoder's ``SRC``
+  frames, and greedy decode steps); it imports only torch, numpy and the
+  port.
 - ``assemble``: the global (B, S, V) logits from the ranks' rows (each
   batch shard's rows from its ``model``-index-0 rank).
 - ``gloo_mesh_run``: ``rank_body`` on one gloo rank per mesh device
@@ -17,24 +19,30 @@ import pickle
 import numpy as np
 
 B, PROMPT, CAP = 2, 8, 32
+# An encoder-decoder's source frames: 6 splits over a model axis of 2
+# but not of 4, so the cross K/V runs both as sequence shards and whole.
+SRC = 6
 
 
-def rank_body(cfg, params_np, tokens, steps, rm, kernels=False):
-    """This rank's logits of a prefill of ``tokens`` (B, PROMPT) and of
-    ``steps`` greedy decode steps, and its rows' greedy stream."""
+def rank_body(cfg, params_np, inputs, steps, rm, kernels=False):
+    """This rank's logits of a prefill of ``inputs`` ({"tokens": (B,
+    PROMPT)}, and "frames" (B, SRC, frontend_dim) for an encoder-decoder)
+    and of ``steps`` greedy decode steps, and its rows' greedy stream."""
     import torch
     from repro_torch.bridge import shard_params, shard_tensor, to_torch
     from repro_torch.models import Model
     from repro_torch.sharding import input_sharding, make_pc, param_specs
-    b = tokens.shape[0]
-    model = Model(cfg, device="cpu",
-                  pc=make_pc(cfg, rm, batch=b, cap=CAP)).with_kernels(kernels)
+    b = inputs["tokens"].shape[0]
+    src = inputs["frames"].shape[1] if "frames" in inputs else 0
+    model = Model(cfg, device="cpu", pc=make_pc(
+        cfg, rm, batch=b, cap=CAP, src_len=src)).with_kernels(kernels)
     params = shard_params(to_torch(params_np), param_specs(cfg, rm), rm,
                           rm.rank)
-    cache = model.init_cache(b, CAP)
-    toks = shard_tensor(torch.from_numpy(tokens),
-                        input_sharding(cfg, rm, b), rm, rm.rank)
-    logits, _ = model.prefill(params, {"tokens": toks}, cache)
+    cache = model.init_cache(b, CAP, src_len=src)
+    spec = input_sharding(cfg, rm, b)
+    logits, _ = model.prefill(params, {
+        k: shard_tensor(torch.from_numpy(v), spec, rm, rm.rank)
+        for k, v in inputs.items()}, cache)
     out = [logits.numpy()]
     tok = logits[:, -1:, :cfg.vocab].argmax(-1)
     stream = [tok]
@@ -71,8 +79,8 @@ def _entry(rank, world, init, out_dir, args):
     try:
         from repro_torch.distributed import DistMesh
         from repro_torch.launch.mesh import MeshLayout
-        shape, axes, cfg, params_np, tokens, steps = args
-        res = rank_body(cfg, params_np, tokens, steps,
+        shape, axes, cfg, params_np, inputs, steps = args
+        res = rank_body(cfg, params_np, inputs, steps,
                         DistMesh(MeshLayout(shape, axes)))
     finally:
         dist.destroy_process_group()
@@ -80,7 +88,7 @@ def _entry(rank, world, init, out_dir, args):
         pickle.dump(res, f)
 
 
-def gloo_mesh_run(tmp, layout, cfg, params_np, tokens, steps) -> list:
+def gloo_mesh_run(tmp, layout, cfg, params_np, inputs, steps) -> list:
     """``rank_body`` on ``layout.size`` gloo ranks; results in rank order."""
     import torch.multiprocessing as mp
     os.makedirs(tmp, exist_ok=True)
@@ -88,7 +96,7 @@ def gloo_mesh_run(tmp, layout, cfg, params_np, tokens, steps) -> list:
     mp.start_processes(
         _entry, args=(layout.size, init, tmp,
                       (layout.dims, layout.axis_names, cfg, params_np,
-                       tokens, steps)),
+                       inputs, steps)),
         nprocs=layout.size, start_method="spawn")
     out = []
     for r in range(layout.size):

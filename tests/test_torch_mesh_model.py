@@ -3,13 +3,19 @@ the CPU.
 
 - The rank program on in-process ranks (``ThreadMesh``) at (1, 4), (2, 2)
   and (2, 4), on the reduced phi3.5-MoE, qwen3-32b, phi4-mini, gemma-7b
-  (tied embeddings), gemma3-27b (a sliding-window ring), qwen2-vl and
-  DeepSeek-V3 with the weights carried from JAX: the logits of a prefill
-  and 8 greedy decode steps within 1e-4 of the largest logit of the
+  (tied embeddings), gemma3-27b (a sliding-window ring), qwen2-vl,
+  DeepSeek-V3, mamba2, zamba2 (Mamba2 blocks and the shared attention
+  block) and SeamlessM4T (seeded frames sharded over ``data``: the
+  encoder, the cross K/V over the source sequence) with the weights
+  carried from JAX: the logits of a prefill and 8 greedy decode steps
+  (4 for the last three) within 1e-4 of the largest logit of the
   reference's unsharded ``Model`` (fp32), the greedy streams identical.
   The reduced configs have 4 heads, 2 kv heads and 4 experts, so (2, 4)
-  splits ``wq`` and replicates ``wk``/``wv``, and (2, 2) puts the experts
-  over (data, model).
+  splits ``wq`` and replicates ``wk``/``wv``, and (2, 2) puts the
+  experts over (data, model); mamba's in_proj (1072 columns) and conv
+  channels (544) split over ``model`` across the z | xBC | dt boundaries
+  (mamba2 and zamba2 at (1, 4) and (2, 2) only: their layout splits over
+  ``model`` alone).
 - The plain ``decode_attn`` with its log-sum-exp, merged over 4 sequence
   shards (one of them empty), equals the unsharded result within 1e-5.
 - Four gloo processes (``DistMesh``, 2 x 2) give the thread transport's
@@ -21,8 +27,9 @@ the CPU.
   and ``PartitionSpec``s (each leaf's bytes over the product of the sizes
   of the axes on its dims), as do the dry run's per-device records on the
   16 x 16 and 2 x 16 x 16 meshes.
-- The SSM, hybrid and encoder-decoder families refuse a ``model`` axis
-  above 1 (ROADMAP A4); a mesh train record keeps its specs' arguments.
+- A mesh train record keeps its specs' arguments (no rank program:
+  ROADMAP A5); the SSM, hybrid and encoder-decoder families build on a
+  mesh and their serving records are traced.
 """
 
 import functools
@@ -38,7 +45,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from _torch_mesh import B, CAP, PROMPT, assemble, gloo_mesh_run, \
+from _torch_mesh import B, CAP, PROMPT, SRC, assemble, gloo_mesh_run, \
     rank_body  # noqa: E402
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.models import Model as JaxModel  # noqa: E402
@@ -54,9 +61,22 @@ from repro_torch.models import Model  # noqa: E402
 from repro_torch.sharding import make_pc  # noqa: E402
 
 ARCHS = ("phi3.5-moe-42b-a6.6b", "qwen3-32b", "phi4-mini-3.8b", "gemma-7b",
-         "gemma3-27b", "qwen2-vl-7b", "deepseek-v3-671b")
+         "gemma3-27b", "qwen2-vl-7b", "deepseek-v3-671b", "mamba2-1.3b",
+         "zamba2-7b", "seamless-m4t-large-v2")
 MESHES = ((1, 4), (2, 2), (2, 4))
+# Mamba's layout splits over ``model`` alone: (1, 4) and (2, 2) cover its
+# splits, so its families skip the (2, 4) run (8 ranks, the costliest).
+CASES = [(a, m) for a in ARCHS for m in MESHES
+         if not (a in ("mamba2-1.3b", "zamba2-7b") and m == (2, 4))]
 STEPS = 8
+
+
+def _steps(arch):
+    """Greedy decode steps: 4 for the SSM, hybrid and encoder-decoder
+    families (on (1, 4) their first step already writes past the
+    prompt's rank-0 cache shard), else ``STEPS``."""
+    return 4 if arch in ("mamba2-1.3b", "zamba2-7b",
+                         "seamless-m4t-large-v2") else STEPS
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -69,7 +89,8 @@ def _one_thread():
 
 @functools.lru_cache(maxsize=None)
 def _reference(arch):
-    """The reduced config's JAX params (seed 0) as numpy leaves, the prompt,
+    """The reduced config's JAX params (seed 0) as numpy leaves, the
+    prefill's inputs (the prompt, and an encoder-decoder's seeded frames),
     and the unsharded JAX Model's prefill and greedy decode logits and
     stream."""
     cfg_j = jax_get_config(arch).reduced()
@@ -78,37 +99,42 @@ def _reference(arch):
     pj = jax.tree.map(jnp.asarray, params)
     prefill = jax.jit(mj.prefill)
     decode = jax.jit(mj.decode_step)
-    tokens = np.random.default_rng(7).integers(1, 500, (B, PROMPT))
-    cache = mj.init_cache(B, CAP)
-    logits, cache = prefill(pj, {"tokens": jnp.asarray(tokens)}, cache)
+    rng = np.random.default_rng(7)
+    inputs = {"tokens": rng.integers(1, 500, (B, PROMPT))}
+    if cfg_j.is_encoder_decoder:
+        inputs["frames"] = rng.standard_normal(
+            (B, SRC, cfg_j.frontend_dim)).astype(np.float32)
+    cache = mj.init_cache(B, CAP, src_len=SRC if "frames" in inputs else 0)
+    logits, cache = prefill(pj, jax.tree.map(jnp.asarray, inputs), cache)
     out = [np.asarray(logits)]
     tok = jnp.argmax(logits[:, -1:, :cfg_j.vocab], -1)
     stream = [np.asarray(tok)]
-    for _ in range(STEPS):
+    for _ in range(_steps(arch)):
         logits, cache = decode(pj, tok, cache)
         out.append(np.asarray(logits))
         tok = jnp.argmax(logits[:, :, :cfg_j.vocab], -1)
         stream.append(np.asarray(tok))
-    return params, tokens, out, np.concatenate(stream, 1)
+    return params, inputs, out, np.concatenate(stream, 1)
 
 
 def _thread_run(arch, shape, kernels=False):
     cfg = get_config(arch).reduced()
-    params, tokens, _, _ = _reference(arch)
+    params, inputs, _, _ = _reference(arch)
     layout = MeshLayout(shape, ("data", "model"))
     res = ThreadMesh(layout).run(
-        lambda rm: rank_body(cfg, params, tokens, STEPS, rm, kernels))
+        lambda rm: rank_body(cfg, params, inputs, _steps(arch), rm,
+                             kernels))
     logits = assemble(layout, cfg, [r[0] for r in res], B)
     stream = assemble(layout, cfg, [[r[1]] for r in res], B)[0]
     return logits, stream, res
 
 
-@pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch,shape", CASES,
+                         ids=[f"{a}-{m[0]}x{m[1]}" for a, m in CASES])
 def test_rank_program_matches_jax(arch, shape):
     _, _, want, want_stream = _reference(arch)
     got, stream, res = _thread_run(arch, shape, kernels=arch == ARCHS[0])
-    assert len(got) == len(want) == STEPS + 1
+    assert len(got) == len(want) == _steps(arch) + 1
     for g, w in zip(got, want):
         assert g.shape == w.shape
         np.testing.assert_allclose(g, w, rtol=0,
@@ -155,12 +181,12 @@ def test_decode_attn_lse_merges_over_sequence_shards():
 def test_gloo_ranks_match_the_thread_transport(tmp_path):
     arch = "phi3.5-moe-42b-a6.6b"
     cfg = get_config(arch).reduced()
-    params, tokens, _, _ = _reference(arch)
+    params, inputs, _, _ = _reference(arch)
     layout = MeshLayout((2, 2), ("data", "model"))
     steps = 2                    # process start and rendezvous dominate
-    got = gloo_mesh_run(str(tmp_path), layout, cfg, params, tokens, steps)
+    got = gloo_mesh_run(str(tmp_path), layout, cfg, params, inputs, steps)
     want = ThreadMesh(layout).run(
-        lambda rm: rank_body(cfg, params, tokens, steps, rm))
+        lambda rm: rank_body(cfg, params, inputs, steps, rm))
     for (g_logits, g_stream, g_bytes), (w_logits, w_stream, w_bytes) in zip(
             got, want):
         for a, b in zip(g_logits, w_logits):
@@ -193,23 +219,46 @@ def _reckon(specs_tree, shapes_tree, layout) -> int:
     return total
 
 
+def _cap_src(cfg, shape):
+    """(cache capacity, source positions) of a step, as
+    ``specs.lowering_args`` sizes them: an encoder-decoder's prefill
+    caches a target of ``seq_len // 4`` over ``seq_len`` frames, its
+    decode ``specs.SRC_LEN`` frames."""
+    s = shape.seq_len
+    if not cfg.is_encoder_decoder:
+        return s, 0
+    if shape.kind == "prefill":
+        return s // specs.AUDIO_TGT_FRac, s
+    return s, specs.SRC_LEN
+
+
 def _reference_args_bytes(arch, shape, layout, reduced=False) -> int:
     cfg_j = jax_get_config(arch)
     cfg_j = cfg_j.reduced() if reduced else cfg_j
     mesh = _stand_in(layout)
     b, s = shape.global_batch, shape.seq_len
+    cap, src = _cap_src(cfg_j, shape)
     params = jax.eval_shape(lambda: jrules.tf.init_params(
         jax.random.PRNGKey(0), cfg_j))
     total = _reckon(jrules.param_specs(cfg_j, mesh), params, layout)
-    cache = jax.eval_shape(lambda: jrules.tf.init_cache(cfg_j, b, s))
-    total += _reckon(jrules.cache_specs(cfg_j, mesh, b, s), cache, layout)
-    tok_len = 1 if shape.kind == "decode" else s
-    tok = jax.ShapeDtypeStruct((b, tok_len), jnp.int32)
-    return total + _reckon([jrules.input_sharding(cfg_j, mesh, b)], [tok],
-                           layout)
+    cache = jax.eval_shape(lambda: jrules.tf.init_cache(cfg_j, b, cap,
+                                                        src_len=src))
+    total += _reckon(jrules.cache_specs(cfg_j, mesh, b, cap, src), cache,
+                     layout)
+    if shape.kind == "decode":
+        inputs = [jax.ShapeDtypeStruct((b, 1), jnp.int32)]
+    elif src:
+        inputs = [jax.ShapeDtypeStruct((b, s, cfg_j.frontend_dim),
+                                       jnp.bfloat16),
+                  jax.ShapeDtypeStruct((b, cap), jnp.int32)]
+    else:
+        inputs = [jax.ShapeDtypeStruct((b, s), jnp.int32)]
+    return total + _reckon([jrules.input_sharding(cfg_j, mesh, b)]
+                           * len(inputs), inputs, layout)
 
 
-@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "deepseek-v3-671b"])
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "deepseek-v3-671b",
+                                  "zamba2-7b", "seamless-m4t-large-v2"])
 def test_meta_trace_equals_the_thread_rank_0(arch):
     cfg = get_config(arch).reduced()
     layout = MeshLayout((2, 4), ("data", "model"))
@@ -228,22 +277,24 @@ def test_meta_trace_equals_the_thread_rank_0(arch):
                                             shard_tensor, to_torch)
             from repro_torch.sharding import (cache_specs, input_sharding,
                                               param_specs)
-            b, s = shape.global_batch, shape.seq_len
+            b = shape.global_batch
+            cap, src = _cap_src(cfg, shape)
             model = Model(cfg, device="cpu",
-                          pc=make_pc(cfg, rm, batch=b, cap=s))
+                          pc=make_pc(cfg, rm, batch=b, cap=cap, src_len=src))
             params = shard_params(to_torch(params_np),
                                   param_specs(cfg, rm), rm, rm.rank)
-            cache = model.init_cache(b, s)
+            cache = model.init_cache(b, cap, src_len=src)
             assert dryrun.tree_bytes(cache) == dryrun.tree_bytes(
-                shard_cache(specs.abstract_cache(cfg, b, s),
-                            cache_specs(cfg, rm, b, s), rm, rm.rank))
-            n = s if shape.kind == "prefill" else 1
-            toks = shard_tensor(torch.ones((b, n), dtype=torch.int32),
-                                input_sharding(cfg, rm, b), rm, rm.rank)
+                shard_cache(specs.abstract_cache(cfg, b, cap, src),
+                            cache_specs(cfg, rm, b, cap, src), rm, rm.rank))
+            inputs = {k: shard_tensor(torch.ones(t.shape, dtype=t.dtype),
+                                      input_sharding(cfg, rm, b), rm,
+                                      rm.rank)
+                      for k, t in specs.input_specs(cfg, shape).items()}
             if shape.kind == "prefill":
-                fn, a = model.prefill, (params, {"tokens": toks}, cache)
+                fn, a = model.prefill, (params, inputs, cache)
             else:
-                fn, a = model.decode_step, (params, toks, cache)
+                fn, a = model.decode_step, (params, inputs["tokens"], cache)
             if rm.rank != 0:
                 fn(*a)
                 return None
@@ -279,8 +330,10 @@ def test_dryrun_mesh_records(tmp_path, capsys):
 def test_train_and_deferred_pairs_keep_exact_arguments():
     """A train pair on a mesh has no rank program (ROADMAP A5): exact
     arguments from the shards (params and AdamW moments), FLOPs and temp
-    from the one-card trace, said so in ``figures``. mamba2 builds no rank
-    program once ``model`` splits (ROADMAP A4)."""
+    from the one-card trace, said so in ``figures``. The SSM, hybrid and
+    encoder-decoder families build on a mesh whose ``model`` axis splits,
+    and their serving records on the 16 x 16 mesh are traced from rank
+    0's rank program, collective bytes included."""
     cfg = get_config("phi3.5-moe-42b-a6.6b").reduced()
     shape = InputShape("t_train", 16, 4, "train")
     rec, = dryrun.run_mesh_pair(cfg, shape, (False,))
@@ -298,10 +351,11 @@ def test_train_and_deferred_pairs_keep_exact_arguments():
         cfg = get_config(arch).reduced()
 
         def build(rm, cfg=cfg):
-            with pytest.raises(ValueError, match="ROADMAP A4"):
-                Model(cfg, device="cpu", pc=make_pc(cfg, rm, batch=4,
-                                                    cap=16))
-        ThreadMesh(layout).run(build)
-        step, _, _ = specs.lowering_args(
-            cfg, InputShape("t_decode", 16, 4, "decode"), layout)
-        assert step is None
+            return Model(cfg, device="cpu", pc=make_pc(
+                cfg, rm, batch=4, cap=16)).pc.tp
+        assert ThreadMesh(layout).run(build) == [4] * 4
+        rec, = dryrun.run_mesh_pair(
+            cfg, InputShape("t_decode", 16, 4, "decode"), (False,))
+        assert rec["cost"]["collective_bytes"] is not None
+        assert rec["cost"]["collective_bytes"] > 0
+        assert "cost.flops" in rec["figures"]["traced"]

@@ -136,7 +136,8 @@ def test_production_and_test_meshes():
 
 
 @pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "deepseek-v3-671b",
-                                  "gemma3-27b"])
+                                  "gemma3-27b", "mamba2-1.3b", "zamba2-7b",
+                                  "seamless-m4t-large-v2"])
 def test_shards_have_the_reference_shapes_and_tile_each_leaf(arch):
     """Each rank's shard of every reduced param leaf has the local shape
     the reference's spec gives it, and the ranks' shards put back
