@@ -154,8 +154,8 @@ non-zero:
    layer at the decode batch. Printed: weights GB, init s, step ms, TTFT,
    tok/s, ``moe_gmm`` ms beside its bound, a decode-step profile, EP
    decode steps in alternated rounds, the phase's seconds.
-17. train, run last, once DeepSeek-V3 is freed (under 1 GB must stay
-   allocated). Training takes the reference's plain route (dense MoE
+17. train, once DeepSeek-V3 is freed (under 1 GB must stay
+   allocated; train_mesh, 20., follows it). Training takes the reference's plain route (dense MoE
    dispatch, ``attention_core``; neither Pallas kernel has a backward):
    (a) one ``make_train_step`` of each of the ten reduced archs (fp32,
    B 2, S 16, frames for SeamlessM4T) on the card and on the CPU from the
@@ -233,6 +233,32 @@ non-zero:
    zamba2, SeamlessM4T; beside the memory-efficient SDPA kernel with
    ``compute_log_sumexp``) and ``moe_gmm`` at rank 0's experts, each
    within 2e-2 of its plain version.
+
+20. train_mesh, after train: sharded training on the mesh rank program,
+   4 thread ranks of the card on a (2, 2) mesh over (data, model), the
+   plain route (no kernel has a backward). First, why thread ranks run
+   one joint backward: two thread ranks whose all_reduce has a per-rank
+   backward waiting at the thread barrier, each calling backward itself,
+   block CUDA's one autograd thread until the barrier times out (5 s;
+   printed, not gated), where ``RankMesh.grad`` gives the right grads
+   (gated). (a) One ``make_train_step`` of
+   each of the ten reduced archs (fp32, B 4 x S 16, frames of 8 for
+   SeamlessM4T, capacity factor E so no token is dropped) against the
+   unsharded card step from the same weights and batch (its MoE aux the
+   mean over the 4 token shards, as the EP layer's ``ep_mean`` takes
+   it): the loss within 1e-5 relative, the updated params and both AdamW
+   moments, reassembled from the shards, within 1e-5 + 1e-4 x each
+   leaf's largest magnitude. (b) The same at full width: phi3.5-MoE at 1
+   layer in fp32 (experts over data x model, 4 a rank), batch 2 x 2048,
+   one step, the unsharded step run first and only its updated params
+   and moments kept (on the host). (c) phi3.5-MoE at 2 layers in bf16
+   with remat, batch 2 x 2048, 5 steps: losses finite, rank 0's argument
+   bytes and each step's collective bytes equal to the dry run's trace of
+   rank 0 on ``meta`` to the byte; printed: step ms and their median, a
+   profile of one step (device kernels a step), the card's peak beside 4
+   x the dry run's per-device total. (d) Neither kernel's launch counter
+   moves. Alone: ``python3 -c "import sys; sys.path.insert(0, 'src');
+   import chip_smoke as c; c.phase_device(); c.phase_train_mesh()"``.
 
 Phase 4 also serves the four reduced dense archs (phi4-mini, gemma-7b,
 qwen3-32b, gemma3-27b with its LG layers and a ring of 16; fp32) through
@@ -3371,6 +3397,370 @@ def phase_train():
          seconds=time.perf_counter() - t_phase)
 
 
+# ---------------------------------------------------------------------------
+# train_mesh: sharded training on the mesh rank program
+# ---------------------------------------------------------------------------
+
+TRAIN_MESH = (2, 2)              # (data, model): 4 thread ranks of the card
+TRAIN_MESH_BATCH, TRAIN_MESH_SEQ = 2, 2048   # one row a data shard
+TRAIN_MESH_STEPS = 5             # (c): bf16 steps, the first a warm-up
+TRAIN_MESH_BF16_LAYERS = 2
+
+
+def _no_drop(cfg):
+    """``cfg`` with a capacity factor of E: no token is dropped, so an EP
+    rank (capacity sized on its token slice) and the unsharded layer
+    (sized on the batch) keep the same tokens."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+
+
+@contextlib.contextmanager
+def _ep_aux(cfg, n: int):
+    """The unsharded reference of an EP rank program: while on, the
+    port's ``route`` takes its aux loss as the mean over ``n`` contiguous
+    token shards, the EP layer's ``ep_mean`` of its ranks' aux (gates and
+    choices stay the whole batch's)."""
+    from repro_torch.models import moe
+    route = moe.route
+
+    def sharded(router_w, x, m):
+        gates, idx, _ = route(router_w, x, m)
+        return gates, idx, sum(route(router_w, c, m)[2]
+                               for c in x.chunk(n)) / n
+    moe.route = sharded if cfg.moe is not None else route
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
+def _worst(got, want) -> float:
+    """The worst leaf's error over 1e-5 + 1e-4 x its largest magnitude."""
+    from repro_torch.bridge import tree_leaves
+    worst = 0.0
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        g, w = g.float(), w.float().to(g.device)
+        tol = 1e-5 + 1e-4 * float(w.abs().max())
+        worst = max(worst, float((g - w).abs().max()) / tol)
+    return worst
+
+
+def _mesh_ranks(cfg, weights, batch, opt_cfg, impl: str = "ep"):
+    """A ``ThreadMesh`` of ``TRAIN_MESH`` on the card, and each rank's
+    state for the sharded step: its model, step, shards of ``weights``
+    (a whole params tree on any device), zero AdamW moments, shards of
+    ``batch`` (on the card) and their bytes."""
+    import torch
+    from repro_torch.bridge import map_tree, shard_params, shard_tensor
+    from repro_torch.distributed import ThreadMesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshLayout
+    from repro_torch.models import Model
+    from repro_torch.sharding import input_sharding, make_pc, param_specs
+    from repro_torch.training import adamw_init, make_train_step
+    tm = ThreadMesh(MeshLayout(TRAIN_MESH, ("data", "model")), "cuda")
+    b = batch["tokens"].shape[0]
+    states = [None] * tm.layout.size
+
+    def setup(rm):
+        model = Model(cfg, device="cuda", pc=make_pc(
+            cfg, rm, impl, batch=b, cap=batch["tokens"].shape[1]))
+        params = map_tree(lambda t: t.to("cuda"), shard_params(
+            weights, param_specs(cfg, rm), rm, rm.rank))
+        spec = input_sharding(cfg, rm, b)
+        shard = {k: shard_tensor(v, spec, rm, rm.rank).to("cuda")
+                 for k, v in batch.items()}
+        opt = adamw_init(params, opt_cfg)
+        states[rm.rank] = {"step": make_train_step(model, opt_cfg),
+                           "params": params, "opt": opt, "batch": shard,
+                           "arg_bytes": dryrun.tree_bytes(
+                               (params, opt, shard))}
+    tm.run(setup)
+    return tm, states
+
+
+def _mesh_step(tm, states):
+    """One sharded step on every rank; each rank's (metrics, collective
+    bytes of the step)."""
+    def one(rm):
+        st = states[rm.rank]
+        rm.collective_bytes = 0
+        st["params"], st["opt"], m = st["step"](st["params"], st["opt"],
+                                                st["batch"])
+        return {k: float(v) for k, v in m.items()}, rm.collective_bytes
+    return tm.run(one)
+
+
+def _mesh_parity(cfg, weights, batch, opt_cfg):
+    """One step unsharded on the card (``make_train_step``, under
+    ``_ep_aux``; its updated params and moments kept on the host) and
+    sharded on ``TRAIN_MESH``'s thread ranks, from the same weights (a
+    host tree) and batch: (the loss's relative error, the worst ratio of
+    the updated params and of each AdamW moment, the number of distinct
+    losses the ranks report)."""
+    import torch
+    from repro_torch.bridge import map_tree, unshard_params
+    from repro_torch.models import Model
+    from repro_torch.sharding import param_specs
+    from repro_torch.training import adamw_init, make_train_step
+    model = Model(cfg, device="cuda")
+    params = map_tree(lambda t: t.to("cuda", copy=True), weights)
+    card = {k: v.to("cuda") for k, v in batch.items()}
+    with _ep_aux(cfg, math.prod(TRAIN_MESH)):
+        params, opt, m = make_train_step(model, opt_cfg)(
+            params, adamw_init(params, opt_cfg), card)
+    want = map_tree(lambda t: t.cpu(), (params, opt["m"], opt["v"]))
+    want_loss = float(m["loss"])
+    del params, opt, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    tm, states = _mesh_ranks(cfg, weights, batch, opt_cfg)
+    res = _mesh_step(tm, states)
+    losses = {r[0]["loss"] for r in res}
+    specs = param_specs(cfg, tm.layout)
+    ratios = []
+    for i, w in enumerate(want):
+        got = unshard_params(
+            [(st["params"], st["opt"]["m"], st["opt"]["v"])[i]
+             for st in states], specs, tm.layout)
+        ratios.append(_worst(got, w))
+        del got
+    rel = max(abs(lo - want_loss) / abs(want_loss) for lo in losses)
+    return rel, ratios, len(losses)
+
+
+TRAP_TIMEOUT_S = 5.0             # the barrier's wait in the trap below
+
+
+def _thread_backward_trap(phase):
+    """Why thread ranks run one joint backward: two thread ranks of the
+    card whose all_reduce has a per-rank backward that waits at the
+    thread barrier, each thread calling backward on its own loss (CUDA
+    runs every backward's nodes on one autograd thread, which the first
+    waiting node blocks: the barrier times out after ``TRAP_TIMEOUT_S``),
+    against ``RankMesh.all_reduce`` and ``RankMesh.grad``. Gate: the joint
+    grads are right (3 on every element); the per-thread run's outcome is
+    printed."""
+    import torch
+    from repro_torch.distributed import ThreadMesh
+    from repro_torch.launch.mesh import MeshLayout
+    layout = MeshLayout((1, 2), ("data", "model"))
+
+    class PerRankAllReduce(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, rm, x):
+            ctx.rm = rm
+            return rm._reduce(x, ("model",))
+
+        @staticmethod
+        def backward(ctx, g):
+            return None, ctx.rm._reduce(g, ("model",))
+
+    def leaf(rm):
+        return torch.full((4,), float(rm.rank + 1), device="cuda",
+                          requires_grad=True)
+
+    def per_thread(rm):
+        x = leaf(rm)
+        (PerRankAllReduce.apply(rm, x) * (rm.rank + 1)).sum().backward()
+        return x.grad.tolist()
+
+    def joint(rm):
+        x = leaf(rm)
+        y = rm.all_reduce(x, "model")
+        return rm.grad((y * (rm.rank + 1)).sum(), [x])[0].tolist()
+
+    out = {}
+    for name, fn in (("per_thread", per_thread), ("joint", joint)):
+        t0 = time.perf_counter()
+        try:
+            res, err = ThreadMesh(layout, "cuda",
+                                  timeout=TRAP_TIMEOUT_S).run(fn), None
+        except RuntimeError as e:
+            res, err = None, repr(e.__cause__ or e)[:120]
+        out[name] = {"grads": res, "error": err,
+                     "seconds": time.perf_counter() - t0}
+    require(out["joint"]["grads"] == [[3.0] * 4] * 2, phase,
+            f"joint backward of two thread ranks: {out['joint']}")
+    return out
+
+
+def _train_mesh_reduced(phase):
+    """(a) the ten reduced archs (fp32, B 4 x S 16, frames of 8 for an
+    encoder-decoder, no token dropped) on ``TRAIN_MESH``'s thread ranks
+    of the card against their unsharded card step: the loss within 1e-5
+    relative, the updated params and both moments within 1e-5 + 1e-4 x
+    each leaf's largest magnitude."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models import init_params
+    from repro_torch.training import AdamWConfig
+    out = {}
+    for arch in ARCH_IDS:
+        cfg = _no_drop(get_config(arch).reduced())
+        rng = np.random.default_rng(3)
+        batch = {"tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab, (4, 16)).astype(np.int32))}
+        if cfg.is_encoder_decoder:
+            batch["frames"] = torch.from_numpy(rng.standard_normal(
+                (4, 8, cfg.frontend_dim)).astype(np.float32))
+        rel, ratios, n = _mesh_parity(cfg, init_params(cfg, 0, "cpu"),
+                                      batch, AdamWConfig())
+        out[arch] = {"loss_rel_err": rel, "params_over_bound": ratios[0],
+                     "m_over_bound": ratios[1], "v_over_bound": ratios[2]}
+        require(n == 1 and rel <= 1e-5 and max(ratios) <= 1.0, phase,
+                f"{arch}: sharded against unsharded {out[arch]}")
+    return out
+
+
+def _train_mesh_full_fp32(phase):
+    """(b) full-width phi3.5-MoE at 1 layer in fp32 (experts over data x
+    model, 4 a rank), batch 2 x 2048, no token dropped: one sharded step
+    against the unsharded one-card step, run first (only its updated
+    params and moments are kept)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import cut_depth, get_config
+    from repro_torch.models import init_params
+    from repro_torch.training import AdamWConfig
+    cfg = _no_drop(dataclasses.replace(cut_depth(get_config(TRAIN_ARCH), 1),
+                                       dtype="float32"))
+    rng = np.random.default_rng(4)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (TRAIN_MESH_BATCH, TRAIN_MESH_SEQ)).astype(np.int32))}
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    weights = init_params(cfg, 0, "cpu")
+    rel, ratios, n = _mesh_parity(cfg, weights, batch, AdamWConfig())
+    out = {"arch": TRAIN_ARCH, "layers": 1, "dtype": "float32",
+           "batch": TRAIN_MESH_BATCH, "seq": TRAIN_MESH_SEQ,
+           "mesh": TRAIN_MESH, "loss_rel_err": rel,
+           "params_over_bound": ratios[0], "m_over_bound": ratios[1],
+           "v_over_bound": ratios[2],
+           "peak_GB": torch.cuda.max_memory_allocated() / 1e9,
+           "seconds": time.perf_counter() - t0}
+    require(n == 1 and rel <= 1e-5 and max(ratios) <= 1.0, phase,
+            f"full width fp32: sharded against unsharded {out}")
+    return out
+
+
+def _train_mesh_full_bf16(phase):
+    """(c) full-width phi3.5-MoE at 2 layers in bf16 with remat, batch 2 x
+    2048 on ``TRAIN_MESH``'s thread ranks, AdamW with the dry run's
+    optimizer config (fp32 moments), ``TRAIN_MESH_STEPS`` steps. Gates:
+    finite losses, rank 0's argument bytes and each step's collective
+    bytes equal to the dry run's trace of rank 0 (``specs.
+    lowering_args`` on ``meta``) to the byte. Printed: step ms (host clock
+    to a synchronise), the median over the steps after the first, the
+    device kernels a step (a profile of one step), and the card's peak
+    beside 4 x the dry run's per-device total."""
+    import statistics
+    import torch
+    from repro_torch.configs import InputShape, cut_depth, get_config
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import MeshLayout
+    from repro_torch.models import init_params
+    from repro_torch.training import SyntheticLMData
+    cfg = cut_depth(get_config(TRAIN_ARCH), TRAIN_MESH_BF16_LAYERS)
+    shape = InputShape("train_2x2048", TRAIN_MESH_SEQ, TRAIN_MESH_BATCH,
+                       "train")
+    t0 = time.perf_counter()
+    step, args, rm0 = specs.lowering_args(
+        cfg, shape, MeshLayout(TRAIN_MESH, ("data", "model")))
+    tr = dryrun.trace_step(step, args)
+    want_args, want_coll = dryrun.tree_bytes(args), rm0.collective_bytes
+    del step, args
+    meta_s = time.perf_counter() - t0
+    data = SyntheticLMData(cfg.vocab, seq_len=TRAIN_MESH_SEQ,
+                           batch=TRAIN_MESH_BATCH, seed=0)
+    batch = {k: torch.as_tensor(v) for k, v in next(data).items()}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    weights = init_params(cfg, 0, "cuda")
+    tm, states = _mesh_ranks(cfg, weights, batch, specs.opt_config_for(cfg))
+    del weights
+    torch.cuda.empty_cache()
+    held_gb = (torch.cuda.memory_allocated() - base) / 1e9
+    steps_ms, metrics, colls = [], [], []
+    for _ in range(TRAIN_MESH_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = _mesh_step(tm, states)
+        torch.cuda.synchronize()
+        steps_ms.append((time.perf_counter() - t1) * 1e3)
+        metrics.append(res[0][0])
+        colls.append(res[0][1])
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    per_device = tr["temp_bytes"] + want_args
+    out = {"arch": TRAIN_ARCH, "layers": TRAIN_MESH_BF16_LAYERS,
+           "dtype": "bfloat16", "remat": True, "mesh": TRAIN_MESH,
+           "batch": TRAIN_MESH_BATCH, "seq": TRAIN_MESH_SEQ,
+           "steps": TRAIN_MESH_STEPS, "step_ms": steps_ms,
+           "median_step_ms": statistics.median(steps_ms[1:]),
+           "tokens_per_s": TRAIN_MESH_BATCH * TRAIN_MESH_SEQ
+           / statistics.median(steps_ms[1:]) * 1e3,
+           "loss": [m["loss"] for m in metrics],
+           "rank0_argument_bytes": states[0]["arg_bytes"],
+           "dryrun_argument_bytes": want_args,
+           "step_collective_bytes": colls,
+           "dryrun_collective_bytes": want_coll,
+           "state_held_GB": held_gb, "peak_GB": peak_gb,
+           "dryrun_per_device_total_GB": per_device / 1e9,
+           "dryrun_4_devices_GB": 4 * per_device / 1e9,
+           "dryrun_flops_per_device": tr["flops"], "meta_trace_s": meta_s}
+    require(all(math.isfinite(m["loss"]) for m in metrics), phase,
+            f"non-finite loss: {out['loss']}")
+    require(states[0]["arg_bytes"] == want_args, phase,
+            f"rank 0's arguments {states[0]['arg_bytes']} B, the dry run's "
+            f"{want_args} B")
+    require(all(c == want_coll for c in colls), phase,
+            f"collective bytes a step {colls}, the dry run's {want_coll}")
+    _profile("train_mesh_step", lambda: _mesh_step(tm, states), 1)
+    del tm, states
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_mesh():
+    """Sharded training on the mesh rank program, after ``train``: first
+    the trap a per-thread backward falls into on the card
+    (``_thread_backward_trap``); (a) reduced parity of one step for the
+    ten archs, 4 thread ranks of the card against the unsharded card
+    step; (b) full width in fp32 against the one-card step; (c) full
+    width in bf16 with remat, timed and held against the dry run to the
+    byte; (d) neither kernel's launch counter moves (training takes the
+    plain route)."""
+    import torch
+    from repro_torch.kernels.decode_attn import decode_attn
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    phase = "train_mesh"
+    t_phase = time.perf_counter()
+    moe_gmm.launches = decode_attn.launches = 0
+    emit(phase, part="thread_backward", timeout_s=TRAP_TIMEOUT_S,
+         **_thread_backward_trap(phase))
+    emit(phase, part="reduced_parity", mesh=TRAIN_MESH,
+         archs=_train_mesh_reduced(phase),
+         tol="loss 1e-5 rel; leaves 1e-5 + 1e-4 max|leaf|")
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(phase, part="full_width_fp32", **_train_mesh_full_fp32(phase))
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(phase, part="full_width_bf16", **_train_mesh_full_bf16(phase))
+    launches = {"moe_gmm": moe_gmm.launches,
+                "decode_attn": decode_attn.launches}
+    require(launches == {"moe_gmm": 0, "decode_attn": 0}, phase,
+            f"sharded training launched a kernel: {launches}")
+    emit(phase, ok=True, launches=launches,
+         seconds=time.perf_counter() - t_phase)
+
+
 # -- dry run ----------------------------------------------------------------
 
 DRYRUN_PEAK_TOL = 0.10           # predicted peak against the card's
@@ -4181,6 +4571,9 @@ def main() -> int:
     require(held < 1.0, "train", f"{held} GB still allocated after "
             "serve_deepseek")
     phase_train()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_mesh()
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "arch",

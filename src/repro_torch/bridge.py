@@ -165,6 +165,50 @@ def shard_params(params, specs, mesh, rank: int):
                     specs)
 
 
+def unshard_params(per_rank, specs, mesh):
+    """The whole tree from every rank's shards (``per_rank``: one tree
+    per rank of ``mesh``, a ``MeshLayout``, in rank order), each leaf
+    reassembled by its spec: the inverse of ``shard_params``. A block
+    that several ranks hold (a replicated dim) is taken from the first of
+    them."""
+    layout = getattr(mesh, "layout", mesh)
+
+    def whole(r_leaves, spec):
+        first = r_leaves[0]
+        shape = list(first.shape)
+        for dim, entry in enumerate(spec):
+            if entry:
+                shape[dim] *= layout.axis_size(_entry_axes(entry))
+        out = first.new_empty(shape)
+        done = set()
+        for r, t in enumerate(r_leaves):
+            at = tuple(layout.axis_index(r, _entry_axes(e)) if e else 0
+                       for e in spec)
+            if at in done:
+                continue
+            done.add(at)
+            view = out
+            for dim, i in enumerate(at):
+                view = view.narrow(dim, i * t.shape[dim], t.shape[dim])
+            view.copy_(t)
+        return out
+
+    leaves = [tree_leaves(t) for t in per_rank]
+    specs_l = spec_leaves(per_rank[0], specs)
+    return tree_unflatten(per_rank[0], [
+        whole([rl[i] for rl in leaves], s) for i, s in enumerate(specs_l)])
+
+
+def gather_tensor(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The whole leaf from this rank's shard ``t`` on a bound
+    ``RankMesh``: gathered over the axes of each split dim, in group
+    order (``shard_tensor``'s). Every rank calls it (a collective)."""
+    for dim, entry in enumerate(spec):
+        if entry:
+            t = mesh.all_gather(t, dim, _entry_axes(entry))
+    return t
+
+
 def shard_cache(cache, specs, mesh, rank: int):
     """Rank ``rank``'s shard of a cache tree under ``sharding.cache_specs``.
     A per-slot ``len`` vector lies with its rows (the batch's axes), which

@@ -31,10 +31,10 @@ import torch
 
 from ..core.schedule import check_partial_permutation, \
     validate_permutation_slots
-from .group import EPGroup, inverse_round
+from .group import EPGroup, inverse_round, transpose_round
 
-__all__ = ["aurora_rounds_from_schedule", "ep_all_to_all",
-           "ep_dispatch_combine", "round_robin_rounds",
+__all__ = ["aurora_rounds_from_schedule", "ep_all_gather", "ep_all_to_all",
+           "ep_dispatch_combine", "ep_mean", "round_robin_rounds",
            "validate_rounds_cover"]
 
 
@@ -148,14 +148,91 @@ def _exchange_rounds(bufs, group: EPGroup, rounds):
     return [outs[me] for me in group.ranks]
 
 
+def _raw_exchange(bufs, group: EPGroup, rounds):
+    if rounds is not None:
+        return _exchange_rounds(bufs, group, rounds)
+    return group.all_to_all(bufs)
+
+
+class _Exchange(torch.autograd.Function):
+    """The dispatch exchange; its transpose is the same exchange with each
+    round transposed (``transpose_round``: every transfer sent back to its
+    sender), the monolithic all-to-all's is the all-to-all itself."""
+
+    @staticmethod
+    def forward(ctx, group, rounds, *bufs):
+        ctx.group, ctx.rounds = group, rounds
+        return tuple(_raw_exchange(list(bufs), group, rounds))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        rounds = (None if ctx.rounds is None else
+                  tuple(transpose_round(r) for r in ctx.rounds))
+        return (None, None) + tuple(_raw_exchange(list(grads), ctx.group,
+                                                  rounds))
+
+
+def _spread(g, held: int):
+    """The grad of an output that a call's held ranks share, as the first
+    held rank's (the others' zero): one held rank's output carries only
+    its own consumers' grad, while a shared one carries them all."""
+    return [g] + [torch.zeros_like(g)] * (held - 1)
+
+
+class _Gather(torch.autograd.Function):
+    """``group.all_gather``; its transpose is a reduce-scatter: the grad
+    cut into the ranks' blocks, exchanged, and summed over the senders."""
+
+    @staticmethod
+    def forward(ctx, group, *parts):
+        ctx.group = group
+        return group.all_gather(list(parts))
+
+    @staticmethod
+    def backward(ctx, g):
+        group = ctx.group
+        bufs = [b.reshape((group.n, -1) + tuple(g.shape[1:]))
+                for b in _spread(g, len(group.ranks))]
+        return (None,) + tuple(b.sum(0) for b in group.all_to_all(bufs))
+
+
+class _Mean(torch.autograd.Function):
+    """``group.mean``; its transpose is the mean of the grads."""
+
+    @staticmethod
+    def forward(ctx, group, *vals):
+        ctx.group = group
+        return group.mean(list(vals))
+
+    @staticmethod
+    def backward(ctx, g):
+        group = ctx.group
+        m = group.mean(_spread(g, len(group.ranks)))
+        return (None,) + tuple(m.clone() for _ in group.ranks)
+
+
 def ep_all_to_all(bufs, group: EPGroup, rounds=None):
     """Dispatch exchange over the EP group. ``bufs``: one (n, ...) tensor
     per held rank, row s bound for rank s. Returns one (n, ...) tensor per
     held rank, row s = what rank s sent to it. ``rounds=None``: the
-    monolithic all-to-all; otherwise the Aurora round schedule."""
-    if rounds is not None:
-        return _exchange_rounds(bufs, group, rounds)
-    return group.all_to_all(bufs)
+    monolithic all-to-all; otherwise the Aurora round schedule. It is
+    differentiable (``_Exchange``)."""
+    return list(group._op(lambda g, bs: _Exchange.apply(g, rounds, *bs),
+                          bufs))
+
+
+def ep_all_gather(parts, group: EPGroup):
+    """``group.all_gather`` (one tensor per held rank -> their
+    concatenation over all n ranks along dim 0), differentiable."""
+    return group._op(lambda g, ps: _Gather.apply(g, *ps), parts,
+                     per_rank=False)
+
+
+def ep_mean(vals, group: EPGroup):
+    """``group.mean`` (one scalar per held rank -> the mean over all n
+    ranks, the reference's ``pmean``), differentiable."""
+    return group._op(lambda g, vs: _Mean.apply(g, *vs), vals,
+                     per_rank=False)
 
 
 # ---------------------------------------------------------------------------
@@ -345,8 +422,8 @@ def ep_dispatch_combine(xt, router_w, experts, moe, act, pc,
     vs = [valid[r * t_loc:(r + 1) * t_loc] for r in group.ranks]
     ys, auxes, idxs = body(xs, vs, router_w, experts, moe, act, group,
                            rounds, spec=spec, kernels=kernels)
-    y = group.all_gather(ys)[:t]
-    aux = group.mean(auxes)
+    y = ep_all_gather(ys, group)[:t]
+    aux = ep_mean(auxes, group)
     if return_counts:
         return y, aux, _replicated_counts(idxs, vs, moe.n_experts,
                                           group)[:t]

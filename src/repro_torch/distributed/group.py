@@ -20,7 +20,10 @@ between the two transports, which the caller picks explicitly:
 Primitives: ``all_to_all`` (the baseline exchange), ``permute`` (one
 partial permutation round), ``all_gather`` (concatenate one tensor per
 rank along dim 0, in rank order) and ``mean`` (the mean of one scalar per
-rank, the reference's ``pmean``).
+rank, the reference's ``pmean``). They move values and record no grad;
+``alltoall.ep_all_to_all``, ``ep_all_gather`` and ``ep_mean`` are the
+differentiable exchanges built on them, each an autograd Function whose
+backward is its transpose over the same primitives.
 """
 
 from __future__ import annotations
@@ -93,6 +96,15 @@ class EPGroup:
         """The side stream the round-pipelined path issues its transfers
         on (None: the current stream)."""
         return None
+
+    def _op(self, fn, values, per_rank: bool = True):
+        """``fn(group, values)``: one differentiable exchange
+        (``alltoall.ep_all_to_all``, ``ep_all_gather``, ``ep_mean``) over
+        the held ranks' ``values``, returning one result per held rank
+        (``per_rank``) or one for them all. A mesh's EP groups run it
+        jointly over a thread group with grad, and keep or replay its
+        result under remat (``distributed.mesh``)."""
+        return fn(self, values)
 
     @property
     def transport(self) -> str:

@@ -19,7 +19,9 @@ order); over axes of size 1 it returns its input and moves nothing:
 so the EP rank body (``alltoall._local_dispatch_combine``) runs unchanged
 over it. Every collective adds the bytes of its result to
 ``collective_bytes`` (the convention of the reference's
-``collective_bytes_from_hlo``), the EP group's exchanges included.
+``collective_bytes_from_hlo``), the EP group's exchanges included; those
+exchanges (the monolithic all-to-all or the rounds) also add theirs to
+``exchange_bytes``, the share ``roofline.ep_round_bytes`` reckons.
 
 Three transports, picked explicitly (no fallback from one to another):
 
@@ -37,6 +39,46 @@ Three transports, picked explicitly (no fallback from one to another):
   their bytes. Rank 0 stands for every rank: the sharding rules split a
   dim only when the axis divides it, so every rank holds the same
   shapes and runs the same ops.
+
+Gradients. Each collective is one ``torch.autograd.Function``
+(``_AllReduce``, ``_AllGather``, ``_AllToAll``, shared by the three
+transports) whose backward runs its transpose through the same
+primitives, so a loss's grads cross the ranks. The convention, once for
+every backward: the rank program is one function of every rank's
+tensors, and a value that several ranks hold (an activation replicated
+over ``model``, a replicated leaf, the loss that a batch shard's
+``model`` peers each compute) has as its grad the SUM of its copies'
+partial grads. So ``all_reduce`` transposes to ``all_reduce``,
+``all_gather`` to a reduce-scatter (the grad split into the members'
+blocks by an all-to-all and summed over the members in group order) and
+``all_to_all`` to the all-to-all with ``split_dim`` and ``cat_dim``
+swapped. A rank seeds its backward with its loss over ``layout.size``
+(``training.loop``: the seeds then sum to the mean over the batch
+shards), and a leaf's grad is summed over the axes that replicate it
+(``training.loop.reduce_replicas``). No identity-forward op is needed
+where a replicated activation enters a split product: its copies'
+partial grads are summed where they meet a collective's transpose.
+
+Remat. Under ``torch.utils.checkpoint`` (``transformer.forward(remat=
+True)``) a block's recompute replays the block's collective results
+(``remat_contexts``, the checkpoint's ``context_fn``) instead of running
+its collectives again: the results are kept, at the memory of one output
+a collective, and a step moves and counts its forward's and its
+backward's collectives, on every transport alike.
+
+Thread ranks and autograd. The engine runs every CUDA node of every
+backward on one worker thread per device, so a collective's backward
+that waited at the barrier for the other thread ranks would block the
+only thread that could run them (and so would a recompute's collective).
+So with grad a thread rank's collective is one graph node over its whole
+group: at the exchange the group's first member applies the Function to
+every member's tensor (``_Joint``) and each member takes its own result;
+``RankMesh.grad`` on a ``ThreadMesh`` is one backward over every rank's
+loss, run from rank 0's thread while the others wait, and no backward
+node waits for a thread. Without grad (serving) each member combines its
+own result. ``DistMesh`` ranks each run their own backward; their
+collectives' backward nodes run in the same order on every rank, as
+their forwards do.
 """
 
 from __future__ import annotations
@@ -48,13 +90,104 @@ import threading
 import torch
 from torch.utils._python_dispatch import _disable_current_modes
 
-from .group import _DONE, DistGroup, EPGroup, inverse_round
+from ..bridge import map_tree
+from .group import _DONE, DistGroup, EPGroup, LocalGroup, inverse_round
 
 __all__ = ["CountingMesh", "DistMesh", "RankMesh", "ThreadMesh"]
 
 
 def _nbytes(t) -> int:
     return t.numel() * t.element_size()
+
+
+# ---------------------------------------------------------------------------
+# The collectives as autograd Functions over the ranks a call holds
+# ---------------------------------------------------------------------------
+#
+# ``held`` is what runs the primitives: a ``RankMesh`` (this rank's tensor
+# alone) or a ``_Joint`` (every member of a thread group). Its
+# ``_held_reduce`` / ``_held_gather`` / ``_held_a2a`` take and return one
+# tensor per held rank and count each result on its rank.
+
+class _AllReduce(torch.autograd.Function):
+    """The sum over a group; its transpose is itself."""
+
+    @staticmethod
+    def forward(ctx, held, axes, *xs):
+        ctx.held, ctx.axes = held, axes
+        return held._held_reduce(xs, axes)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None) + ctx.held._held_reduce(gs, ctx.axes)
+
+
+class _AllGather(torch.autograd.Function):
+    """The concatenation along ``dim`` over a group; its transpose is a
+    reduce-scatter: each member's grad split into the members' blocks by
+    an all-to-all, and the blocks a member receives summed in group
+    order."""
+
+    @staticmethod
+    def forward(ctx, held, axes, dim, *xs):
+        ctx.held, ctx.axes, ctx.dim = held, axes, dim
+        return held._held_gather(xs, dim, axes)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        parts = ctx.held._held_a2a(tuple(g[None] for g in gs), ctx.dim + 1,
+                                   0, ctx.axes)
+        return (None, None, None) + tuple(p.sum(0) for p in parts)
+
+
+class _AllToAll(torch.autograd.Function):
+    """The all-to-all; its transpose swaps ``split_dim`` and
+    ``cat_dim``."""
+
+    @staticmethod
+    def forward(ctx, held, axes, split_dim, cat_dim, *xs):
+        ctx.held, ctx.axes, ctx.dims = held, axes, (split_dim, cat_dim)
+        return held._held_a2a(xs, split_dim, cat_dim, axes)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        split_dim, cat_dim = ctx.dims
+        return (None,) * 4 + ctx.held._held_a2a(gs, cat_dim, split_dim,
+                                                ctx.axes)
+
+
+class _Kept:
+    """One checkpointed region's collective results on one rank, in the
+    order its forward made them (detached, with whether each needed
+    grad); its recompute replays them in that order."""
+
+    def __init__(self):
+        self.outs = []
+        self.next = 0
+
+
+class _KeptTensor:
+    """A kept result, detached, and whether it needed grad."""
+
+    def __init__(self, t):
+        self.t, self.grad = t.detach(), t.requires_grad
+
+
+class _RematMode:
+    """The checkpoint's forward (``replay=False``: keep each result) or
+    recompute (``replay=True``: hand the kept results back) context of
+    one region on one rank."""
+
+    def __init__(self, rm, kept: _Kept, replay: bool):
+        self.rm, self.kept, self.replay = rm, kept, replay
+
+    def __enter__(self):
+        self.prev = self.rm._remat
+        self.kept.next = 0
+        self.rm._remat = (self.kept, self.replay)
+
+    def __exit__(self, *exc):
+        self.rm._remat = self.prev
 
 
 class RankMesh:
@@ -66,6 +199,8 @@ class RankMesh:
         self.rank = int(rank)
         self.device = torch.device(device)
         self.collective_bytes = 0
+        self.exchange_bytes = 0
+        self._remat = None
 
     # The mesh as the sharding rules read it.
     @property
@@ -82,20 +217,22 @@ class RankMesh:
     def axis_index(self, axes) -> int:
         return self.layout.axis_index(self.rank, axes)
 
-    def _count(self, out):
+    def _count(self, out, exchange: bool = False):
         self.collective_bytes += _nbytes(out)
+        if exchange:
+            self.exchange_bytes += _nbytes(out)
         return out
 
     def all_reduce(self, x, axes):
         if self.axis_size(axes) == 1:
             return x
-        return self._count(self._reduce(x, self.layout.axes(axes)))
+        return self._collective(_AllReduce, x, self.layout.axes(axes))
 
     def all_gather(self, x, dim: int, axes):
         if self.axis_size(axes) == 1:
             return x
-        return self._count(self._gather(x, dim % x.ndim,
-                                        self.layout.axes(axes)))
+        return self._collective(_AllGather, x, self.layout.axes(axes),
+                                dim % x.ndim)
 
     def all_to_all(self, x, split_dim: int, cat_dim: int, axes):
         n = self.axis_size(axes)
@@ -104,8 +241,58 @@ class RankMesh:
         if x.shape[split_dim] % n:
             raise ValueError(f"all_to_all splits dim {split_dim} of "
                              f"{tuple(x.shape)} into {n} chunks")
-        return self._count(self._a2a(x, split_dim % x.ndim, cat_dim % x.ndim,
-                                     self.layout.axes(axes)))
+        return self._collective(_AllToAll, x, self.layout.axes(axes),
+                                split_dim % x.ndim, cat_dim % x.ndim)
+
+    def _collective(self, fn, x, axes, *args):
+        return self._replayed(lambda: self._apply(fn, x, axes, *args))
+
+    def _apply(self, fn, x, axes, *args):
+        """``fn`` (a collective's Function) over this rank's ``x``."""
+        return fn.apply(self, axes, *args, x)[0]
+
+    # The primitives over the held ranks' tensors: this rank's alone.
+    def _held_reduce(self, xs, axes):
+        return tuple(self._count(self._reduce(x, axes)) for x in xs)
+
+    def _held_gather(self, xs, dim, axes):
+        return tuple(self._count(self._gather(x, dim, axes)) for x in xs)
+
+    def _held_a2a(self, xs, split_dim, cat_dim, axes):
+        return tuple(self._count(self._a2a(x, split_dim, cat_dim, axes))
+                     for x in xs)
+
+    # -- remat ---------------------------------------------------------------
+    def remat_contexts(self):
+        """The (forward, recompute) contexts of one checkpointed region
+        (``torch.utils.checkpoint``'s ``context_fn``): its forward keeps
+        each collective result of this rank, its recompute replays them in
+        order and runs no collective."""
+        kept = _Kept()
+        return _RematMode(self, kept, False), _RematMode(self, kept, True)
+
+    def _replayed(self, run):
+        """``run()`` (a collective, or an EP group's exchange), kept for a
+        checkpointed region's recompute or replayed by it."""
+        if self._remat is None:
+            return run()
+        kept, replay = self._remat
+        if replay:
+            out = kept.outs[kept.next]
+            kept.next += 1
+            return map_tree(lambda k: k.t.detach().requires_grad_(k.grad),
+                            out)
+        out = run()
+        kept.outs.append(map_tree(_KeptTensor, out))
+        return out
+
+    # -- backward ------------------------------------------------------------
+    def grad(self, loss, inputs):
+        """The grads of the sum over every rank of its ``loss`` (the
+        convention of the module docstring) with respect to this rank's
+        ``inputs``; None for an input the loss does not reach. Every rank
+        calls it."""
+        return torch.autograd.grad(loss, list(inputs), allow_unused=True)
 
 
 # ---------------------------------------------------------------------------
@@ -124,25 +311,52 @@ class ThreadMesh:
         self.layout = layout
         self.device = torch.device(device)
         self._slots = [None] * layout.size
+        self._grad = [False] * layout.size
+        self._results = [None] * layout.size
         self._barrier = threading.Barrier(layout.size, timeout=timeout)
         self.ranks = [ThreadRank(self, r) for r in range(layout.size)]
 
-    def _exchange(self, rank: int, value, combine, out=None):
+    def _exchange(self, rank: int, value, combine, out=None,
+                  grad: bool = False, members=None):
         """Deposit ``value``, wait for every rank, run ``combine(slots)``
         (which fills ``out``), wait again, and return ``out``. ``out`` is
         made by the caller, like the counting transport's result, and
         ``combine`` runs with this thread's dispatch modes off: the dry
         run's trackers (``launch.dryrun``) then see one new storage per
         collective, as on ``meta``, and never the views of other ranks'
-        tensors that combining makes."""
+        tensors that combining makes. ``grad``: whether this rank's call
+        takes the joint path; the ``members`` of its group must agree."""
         self._slots[rank] = value
+        self._grad[rank] = grad
         self._barrier.wait()
         try:
+            if members is not None and len(
+                    {self._grad[m] for m in members}) > 1:
+                raise RuntimeError("the ranks of a group disagree on "
+                                   "whether a collective needs grad")
             with _disable_current_modes():
                 combine(self._slots)
         finally:
             self._barrier.wait()
         self._slots[rank] = None
+        return out
+
+    def _joint(self, rank: int, members, value, apply):
+        """One collective as one graph node over the group ``members``:
+        every member deposits ``value``; the first runs ``apply(member
+        ranks, their values)`` (one result per member, or one for all)
+        and each member returns its own."""
+        def combine(slots):
+            if rank != members[0]:
+                return
+            outs = apply([self.ranks[m] for m in members],
+                         [slots[m] for m in members])
+            if not isinstance(outs, (list, tuple)):
+                outs = [outs] * len(members)
+            for m, o in zip(members, outs):
+                self._results[m] = o
+        self._exchange(rank, value, combine, grad=True, members=members)
+        out, self._results[rank] = self._results[rank], None
         return out
 
     def run(self, fn):
@@ -166,6 +380,7 @@ class ThreadMesh:
             t.join()
         self._barrier.reset()
         self._slots = [None] * self.layout.size
+        self._results = [None] * self.layout.size
         if errors:
             real = [e for e in errors
                     if not isinstance(e[1], threading.BrokenBarrierError)]
@@ -181,6 +396,33 @@ def _sum_into(out, members, slots) -> None:
         out.add_(slots[r])
 
 
+class _Joint:
+    """A thread group's members at once, as its first member holds them
+    during an exchange: the primitives over every member's tensor (in
+    group order), each result counted on its member's rank."""
+
+    def __init__(self, ranks):
+        self.ranks = ranks
+
+    def _out(self, outs):
+        return tuple(r._count(o) for r, o in zip(self.ranks, outs))
+
+    def _held_reduce(self, xs, axes):
+        total = xs[0].clone(memory_format=torch.contiguous_format)
+        for x in xs[1:]:
+            total.add_(x)
+        return self._out([total] + [total.clone() for _ in xs[1:]])
+
+    def _held_gather(self, xs, dim, axes):
+        cat = torch.cat(xs, dim)
+        return self._out([cat] + [cat.clone() for _ in xs[1:]])
+
+    def _held_a2a(self, xs, split_dim, cat_dim, axes):
+        chunks = [x.chunk(len(xs), split_dim) for x in xs]
+        return self._out([torch.cat([c[me] for c in chunks], cat_dim)
+                          for me in range(len(xs))])
+
+
 class ThreadRank(RankMesh):
     """One thread's rank of a ``ThreadMesh``."""
 
@@ -192,9 +434,20 @@ class ThreadRank(RankMesh):
     def _members(self, axes):
         return self.layout.group(self.rank, axes)
 
+    def _apply(self, fn, x, axes, *args):
+        if not (torch.is_grad_enabled() and x.requires_grad):
+            return super()._apply(fn, x, axes, *args)
+        return self.mesh._joint(self.rank, self._members(axes), x,
+                                lambda ranks, xs: fn.apply(
+                                    _Joint(ranks), axes, *args, *xs))
+
+    def _plain(self, x, axes, combine, out):
+        return self.mesh._exchange(self.rank, x, combine, out,
+                                   members=self._members(axes))
+
     def _reduce(self, x, axes):
         out = torch.empty_like(x)
-        return self.mesh._exchange(self.rank, x, functools.partial(
+        return self._plain(x, axes, functools.partial(
             _sum_into, out, self._members(axes)), out)
 
     def _gather(self, x, dim, axes):
@@ -202,7 +455,7 @@ class ThreadRank(RankMesh):
         shape = list(x.shape)
         shape[dim] *= len(members)
         out = x.new_empty(shape)
-        return self.mesh._exchange(self.rank, x, lambda s: torch.cat(
+        return self._plain(x, axes, lambda s: torch.cat(
             [s[r] for r in members], dim, out=out), out)
 
     def _a2a(self, x, split_dim, cat_dim, axes):
@@ -213,9 +466,24 @@ class ThreadRank(RankMesh):
         shape[split_dim] //= n
         shape[cat_dim] *= n
         out = x.new_empty(shape)
-        return self.mesh._exchange(self.rank, x, lambda s: torch.cat(
+        return self._plain(x, axes, lambda s: torch.cat(
             [s[r].chunk(n, split_dim)[me] for r in members], cat_dim,
             out=out), out)
+
+    def grad(self, loss, inputs):
+        """One backward over every rank's loss, from rank 0's thread (the
+        module docstring); each rank gets its inputs' grads."""
+        def apply(ranks, values):
+            flat = [t for _, ins in values for t in ins]
+            gs = torch.autograd.grad([lo for lo, _ in values], flat,
+                                     allow_unused=True)
+            out, i = [], 0
+            for _, ins in values:
+                out.append(gs[i:i + len(ins)])
+                i += len(ins)
+            return out
+        return self.mesh._joint(self.rank, tuple(range(self.layout.size)),
+                                (loss, list(inputs)), apply)
 
     def ep_group(self, axes) -> EPGroup:
         axes = self.layout.axes(axes)
@@ -226,7 +494,9 @@ class ThreadRank(RankMesh):
 
 class _ThreadEPGroup(EPGroup):
     """The flat EP group over ``axes`` seen from one thread rank: it holds
-    that one rank (``ranks == (its index,)``), as a ``DistGroup`` does."""
+    that one rank (``ranks == (its index,)``), as a ``DistGroup`` does.
+    With grad, an exchange runs once for the whole group on a
+    ``_JointEPGroup`` (the module docstring's joint path)."""
 
     def __init__(self, rank_mesh: ThreadRank, axes):
         self.rm = rank_mesh
@@ -239,16 +509,30 @@ class _ThreadEPGroup(EPGroup):
     def transport(self) -> str:
         return f"in-process thread (rank {self.ranks[0]} of {self.n})"
 
-    def _x(self, value, combine, out):
-        return self.rm._count(self.rm.mesh._exchange(self.rm.rank, value,
-                                                     combine, out))
+    def _op(self, fn, values, per_rank: bool = True):
+        value, = values
+        rm = self.rm
+        if not (torch.is_grad_enabled() and value.requires_grad):
+            return rm._replayed(lambda: fn(self, values))
+
+        def joint():
+            out = rm.mesh._joint(rm.rank, self.members, value,
+                                 lambda ranks, vals: fn(_JointEPGroup(
+                                     ranks, self.device), vals))
+            return [out] if per_rank else out
+        return rm._replayed(joint)
+
+    def _x(self, value, combine, out, exchange: bool = False):
+        return self.rm._count(self.rm.mesh._exchange(
+            self.rm.rank, value, combine, out, members=self.members),
+            exchange)
 
     def all_to_all(self, bufs):
         buf, = bufs
         me = self.ranks[0]
         out = torch.empty_like(buf)
         return [self._x(buf, lambda s: torch.stack(
-            [s[r][me] for r in self.members], out=out), out)]
+            [s[r][me] for r in self.members], out=out), out, True)]
 
     def permute(self, dst, send, recv, stream=None):
         me = self.ranks[0]
@@ -258,7 +542,7 @@ class _ThreadEPGroup(EPGroup):
             self.rm.mesh._exchange(self.rm.rank, value, lambda s: None)
             return _DONE
         out = recv(me)
-        self._x(value, lambda s: out.copy_(s[self.members[src]]), out)
+        self._x(value, lambda s: out.copy_(s[self.members[src]]), out, True)
         return _DONE
 
     def all_gather(self, parts):
@@ -276,6 +560,42 @@ class _ThreadEPGroup(EPGroup):
             _sum_into(out, self.members, s)
             out.div_(self.n)
         return self._x(val, combine, out)
+
+
+class _JointEPGroup(LocalGroup):
+    """A thread EP group's members at once (``_Joint``'s EP form): the
+    in-process exchanges of a ``LocalGroup`` over every member's buffers,
+    each result counted on its member's rank as the thread group counts
+    it."""
+
+    def __init__(self, ranks, device):
+        super().__init__(len(ranks), device)
+        self.rms = ranks
+
+    def all_to_all(self, bufs):
+        outs = super().all_to_all(bufs)
+        for rm, o in zip(self.rms, outs):
+            rm._count(o, True)
+        return outs
+
+    def permute(self, dst, send, recv, stream=None):
+        handle = super().permute(dst, send, recv, stream)
+        for j, i in enumerate(inverse_round(dst)):
+            if i >= 0:
+                self.rms[j]._count(recv(j), True)
+        return handle
+
+    def all_gather(self, parts):
+        out = super().all_gather(parts)
+        for rm in self.rms:
+            rm._count(out)
+        return out
+
+    def mean(self, vals):
+        out = super().mean(vals)
+        for rm in self.rms:
+            rm._count(out)
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -344,21 +664,25 @@ class DistMesh(RankMesh):
 
 class _CountedDistGroup(DistGroup):
     """``DistGroup`` over one group of a ``DistMesh``, whose exchanges add
-    their results' bytes to the mesh's ``collective_bytes``."""
+    their results' bytes to the mesh's ``collective_bytes`` (and are
+    replayed by a checkpointed region's recompute)."""
 
     def __init__(self, rm: DistMesh, pg, members):
         super().__init__(group=pg, device=rm.device, members=members)
         self.rm = rm
 
+    def _op(self, fn, values, per_rank: bool = True):
+        return self.rm._replayed(lambda: fn(self, values))
+
     def all_to_all(self, bufs):
         out = super().all_to_all(bufs)
-        self.rm._count(out[0])
+        self.rm._count(out[0], True)
         return out
 
     def permute(self, dst, send, recv, stream=None):
         handle = super().permute(dst, send, recv, stream)
         if inverse_round(dst)[self.rank] >= 0:
-            self.rm._count(recv(self.rank))
+            self.rm._count(recv(self.rank), True)
         return handle
 
     def all_gather(self, parts):
@@ -414,14 +738,17 @@ class _CountingEPGroup(EPGroup):
     def transport(self) -> str:
         return f"counting (rank {self.ranks[0]} of {self.n})"
 
+    def _op(self, fn, values, per_rank: bool = True):
+        return self.rm._replayed(lambda: fn(self, values))
+
     def all_to_all(self, bufs):
         buf, = bufs
-        return [self.rm._count(torch.empty_like(buf))]
+        return [self.rm._count(torch.empty_like(buf), True)]
 
     def permute(self, dst, send, recv, stream=None):
         me = self.ranks[0]
         if inverse_round(dst)[me] >= 0:
-            self.rm._count(recv(me))
+            self.rm._count(recv(me), True)
         return _DONE
 
     def all_gather(self, parts):

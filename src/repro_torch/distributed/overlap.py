@@ -42,6 +42,11 @@ def pipelined_local_dispatch_combine(xs, valids, router_w, experts, moe,
     if rounds is None:
         raise ValueError("the pipelined dispatch needs explicit permutation "
                          "rounds (aurora_rounds or round_robin_rounds)")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (*xs, router_w, *experts.values())):
+        raise ValueError("the round-pipelined dispatch has no backward: its "
+                         "rounds fill receive buffers in place (train with "
+                         "ep_overlap=False; ROADMAP A5)")
     n = group.n
     scat = [_scatter_buckets(x, v, router_w, moe, spec)
             for x, v in zip(xs, valids)]

@@ -34,11 +34,12 @@ program. The row-parallel partial sums travel in fp32
 (``models.layers.row_parallel``), where the reference's lowering sums
 them in the activation dtype, so their all-reduces count twice its
 bytes. Rank 0 stands for every device: the rules split a dim only where
-its axes divide it, so every rank holds the same shapes. Train steps (no
-rank-program backward: ROADMAP A5) keep exact arguments from the shards
-and take FLOPs, temp and outputs from the one-card trace as upper
-bounds, with no collective bytes. Each record says which of its figures
-are traced and which are reckoned.
+its axes divide it, so every rank holds the same shapes. A train step is
+traced the same way: the forward, the backward through the collectives'
+and the EP exchanges' transposes, remat's recompute (which replays its
+collectives' results, ``distributed.mesh``), the grads' reduction over
+their replicas and AdamW's sharded norm. Each record says which of its
+figures are traced and which are reckoned.
 
 A pair that cannot be traced is reported ``FAILED`` with its traceback,
 and the run exits 1; nothing is replaced by an analytic guess.
@@ -186,16 +187,18 @@ def step_tokens(cfg, shape) -> int:
 def collective_bytes(cfg, shape, n_cards: int) -> int:
     """Per-card EP round bytes of one step over ``n_cards`` ranks: each MoE
     layer's ``ep_round_bytes``, of which a card sends 1/n. A train step
-    counts the forward three times: the forward, its recompute under
-    remat and the backward's transposed exchanges (the port has no EP
-    backward yet: ROADMAP A5; this is what one would move)."""
+    counts the forward's exchanges twice: the forward and the backward's
+    transposed exchanges, which move the same bytes; remat's recompute
+    replays the forward's results and moves nothing
+    (``distributed.mesh``; held against the traced exchanges of the rank
+    program's train step in ``tests/test_torch_mesh_train.py``)."""
     from ..models.transformer import moe_layer_count
     from ..roofline import ep_round_bytes
     from ..sharding import ep_size_for
     if n_cards <= 1 or ep_size_for(cfg, n_cards) is None:
         return 0
     per_layer = ep_round_bytes(cfg, step_tokens(cfg, shape), n_cards)
-    passes = 3 if shape.kind == "train" else 1
+    passes = 2 if shape.kind == "train" else 1
     return passes * moe_layer_count(cfg) * per_layer // n_cards
 
 
@@ -255,9 +258,6 @@ def _record(cfg, shape, n_cards: int, tr: dict, arg_b: int,
                      "step, an upper bound for one card (every card runs "
                      "the dense part over the whole batch; its experts are "
                      "1/n of the expert FFN)"
-                     + ("; train collective bytes are reckoned for an EP "
-                        "backward the port does not have yet"
-                        if shape.kind == "train" else "")
                      if n_cards > 1 else "one card: everything traced")})
     # ``flops`` is the whole step's (the one-card trace), so MODEL_FLOPS
     # is not divided over the cards for the useful-FLOP ratio.
@@ -280,8 +280,7 @@ def run_mesh_pair(cfg_or_arch, shape, multi_pods=(False,),
                   out_dir: str | None = None) -> list:
     """The per-device records of one (config x shape) on the reference's
     production meshes, one for each of ``multi_pods`` (False: 16 x 16,
-    True: 2 x 16 x 16). The one-card trace that a train pair
-    falls back to is made once for all of them."""
+    True: 2 x 16 x 16), each traced from rank 0's rank program."""
     from ..configs import SHAPES, get_config
     from . import specs as S
     from .mesh import make_production_mesh
@@ -289,7 +288,7 @@ def run_mesh_pair(cfg_or_arch, shape, multi_pods=(False,),
     cfg = (get_config(cfg_or_arch) if isinstance(cfg_or_arch, str)
            else cfg_or_arch)
     shape = SHAPES[shape] if isinstance(shape, str) else shape
-    recs, one_card = [], None
+    recs = []
     for mp in multi_pods:
         name = MESH_NAMES[mp]
         if not S.supported(cfg, shape):
@@ -301,14 +300,9 @@ def run_mesh_pair(cfg_or_arch, shape, multi_pods=(False,),
         mesh = make_production_mesh(multi_pod=mp)
         step, args, rm = S.lowering_args(cfg, shape, mesh)
         arg_b = tree_bytes(args)
-        if step is not None:
-            rm.collective_bytes = 0
-            tr = trace_step(step, args)
-            coll = rm.collective_bytes
-        else:
-            if one_card is None:
-                one_card = trace_step(*S.step_args(cfg, shape))
-            tr, coll = one_card, None
+        rm.collective_bytes = 0
+        tr = trace_step(step, args)
+        coll = rm.collective_bytes
         del args
         recs.append(_mesh_record(cfg, shape, name, mesh.size, tr, arg_b,
                                  coll, out_dir))
@@ -319,29 +313,19 @@ def _mesh_record(cfg, shape, name: str, n_dev: int, tr: dict, arg_b: int,
                  coll, out_dir: str | None) -> dict:
     from ..roofline import roofline_report
     out_b = tr["output_bytes"]
-    traced = coll is not None
-    if traced:
-        figures = {
-            "traced": ["cost.flops", "memory.temp_size_in_bytes",
-                       "memory.output_size_in_bytes",
-                       "cost.collective_bytes"],
-            "exact": ["memory.argument_size_in_bytes"],
-            "reckoned": [],
-            "note": "rank 0's rank program on meta over a CountingMesh; "
-                    "arguments are its shards; row-parallel partial sums "
-                    "travel in fp32, so their all-reduces count twice the "
-                    "bytes of the reference's, which sums them in the "
-                    "activation dtype"}
-    else:
-        why = "sharded training has no rank program yet (ROADMAP A5)"
-        figures = {
-            "traced": [],
-            "exact": ["memory.argument_size_in_bytes"],
-            "reckoned": ["cost.flops", "memory.temp_size_in_bytes",
-                         "memory.output_size_in_bytes"],
-            "note": f"{why}: flops, temp and outputs are the one-card "
-                    "trace's whole step, upper bounds for one device; no "
-                    "collective bytes"}
+    figures = {
+        "traced": ["cost.flops", "memory.temp_size_in_bytes",
+                   "memory.output_size_in_bytes", "cost.collective_bytes"],
+        "exact": ["memory.argument_size_in_bytes"],
+        "reckoned": [],
+        "note": "rank 0's rank program on meta over a CountingMesh; "
+                "arguments are its shards; row-parallel partial sums "
+                "travel in fp32, so their all-reduces count twice the "
+                "bytes of the reference's, which sums them in the "
+                "activation dtype"
+                + ("; a train step's collectives are its forward's and "
+                   "its backward's (remat replays the forward's results)"
+                   if shape.kind == "train" else "")}
     rec = dict(
         arch=cfg.arch_id, shape=shape.name, mesh=name, device="meta",
         status="ok", n_devices=n_dev, trace_s=round(tr["trace_s"], 2),
@@ -354,9 +338,9 @@ def _mesh_record(cfg, shape, name: str, n_dev: int, tr: dict, arg_b: int,
               "collective_bytes": coll},
         figures=figures)
     rec["roofline"] = roofline_report(
-        flops=tr["flops"], hbm_bytes=arg_b, collective_bytes=coll or 0,
-        n_devices=n_dev if traced else 1, cfg=cfg, shape=shape,
-        arg_bytes=arg_b, out_bytes=out_b)
+        flops=tr["flops"], hbm_bytes=arg_b, collective_bytes=coll,
+        n_devices=n_dev, cfg=cfg, shape=shape, arg_bytes=arg_b,
+        out_bytes=out_b)
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         path = os.path.join(out_dir, f"{cfg.arch_id}_{shape.name}_{name}.json")

@@ -138,11 +138,12 @@ def lowering_args(cfg, shape, mesh):
     moments at train (they lie like the params), of the cache and of the
     inputs, on ``meta`` (the reference's ``lowering_args`` on a mesh).
     ``step_fn`` runs the rank program over a ``CountingMesh``
-    (``rank_mesh``), which counts its collective bytes; it is None at
-    train, which has no rank program yet (ROADMAP A5; the arguments are
-    still this rank's). Rank 0 stands for every rank: the rules split a
-    dim only where its axes divide it, so every rank holds the same
-    shapes."""
+    (``rank_mesh``), which counts its collective bytes: at train, rank
+    0's ``make_train_step`` (forward, backward through the collectives
+    and the EP exchange, remat's recompute, the grads' reduction over
+    their replicas and AdamW's sharded norm). Rank 0 stands for every
+    rank: the rules split a dim only where its axes divide it, so every
+    rank holds the same shapes."""
     from ..bridge import shard_cache, shard_params
     from ..distributed.mesh import CountingMesh
     from ..sharding import cache_specs, make_pc, param_specs
@@ -153,11 +154,14 @@ def lowering_args(cfg, shape, mesh):
     inputs = _shard_inputs(cfg, input_specs(cfg, shape), mesh, rank, b)
     rm = CountingMesh(mesh, rank)
     if shape.kind == "train":
-        opt, _ = abstract_opt(cfg, abstract_params(cfg))
+        opt, opt_cfg = abstract_opt(cfg, abstract_params(cfg))
         opt = {"m": shard_params(opt["m"], pspecs, mesh, rank),
                "v": shard_params(opt["v"], pspecs, mesh, rank),
                "step": opt["step"]}
-        return None, (params, opt, inputs), rm
+        model = Model(cfg, device=META, pc=make_pc(
+            cfg, rm, batch=b, cap=s,
+            src_len=s if cfg.is_encoder_decoder else 0))
+        return make_train_step(model, opt_cfg), (params, opt, inputs), rm
     cap = (s // AUDIO_TGT_FRac if cfg.is_encoder_decoder else s) \
         if shape.kind == "prefill" else s
     src = ((s if shape.kind == "prefill" else SRC_LEN)

@@ -576,16 +576,18 @@ def cross_attn_block_mesh(p, x, enc_kv, *, cfg, pc, decode):
 
 
 def mla_block_mesh(p, x, *, cfg, pos, cache, length, mode, row_mask, pc):
-    """``mla_block``'s prefill and decode as the rank program: ``wq_a``
-    split over its latent rank is gathered before ``q_norm`` (an rmsnorm
-    over the whole rank); q, ``wk_b``, ``wv_b`` and ``wo`` by heads; the
-    latent cache by sequence, written from the replicated latent. The
-    absorbed decode merges the shards' latent contexts by their
-    log-sum-exps, in plain PyTorch as the unsharded decode is."""
-    if mode not in ("prefill", "decode") or (
+    """``mla_block``'s cacheless "train" mode, prefill and decode as the
+    rank program: ``wq_a`` split over its latent rank is gathered before
+    ``q_norm`` (an rmsnorm over the whole rank); q, ``wk_b``, ``wv_b`` and
+    ``wo`` by heads; the latent cache by sequence, written from the
+    replicated latent (train writes nothing). The absorbed decode merges
+    the shards' latent contexts by their log-sum-exps, in plain PyTorch
+    as the unsharded decode is."""
+    if mode not in ("train", "prefill", "decode") or (
             mode == "prefill" and length is not None):
-        raise ValueError(f"the mesh rank program runs a fresh prefill and "
-                         f"decode, not {mode!r} (ROADMAP A4)")
+        raise ValueError(f"the mesh rank program runs the cacheless "
+                         f"forward, a fresh prefill and decode, not "
+                         f"{mode!r} (ROADMAP A4)")
     m = cfg.mla
     b, s, _ = x.shape
     h_all = cfg.n_heads
@@ -601,10 +603,9 @@ def mla_block_mesh(p, x, *, cfg, pos, cache, length, mode, row_mask, pc):
         [m.kv_lora_rank, m.qk_rope_head_dim], -1)
     ckv = rmsnorm(p["kv_norm"], ckv, cfg.norm_eps)
     k_rope = apply_rope(k_rope[:, :, None, :], pos, cfg.rope_theta)[:, :, 0]
-    n, f, c = _seq_layout(pc, pc.cap, cache["ckv"].shape[1])
 
-    if mode == "prefill":
-        if pc.cap < s:
+    if mode != "decode":
+        if mode == "prefill" and pc.cap < s:
             raise ValueError(f"prefill of {s} tokens exceeds the cache "
                              f"capacity {pc.cap}")
         k_nope = torch.einsum("bsr,rhk->bshk", ckv, p["wk_b"])
@@ -616,11 +617,14 @@ def mla_block_mesh(p, x, *, cfg, pos, cache, length, mode, row_mask, pc):
         v_pad = torch.nn.functional.pad(v, (0, qq.shape[-1] - m.v_head_dim))
         out = attention_core(qq, kk, v_pad, causal_offset=0,
                              valid_len=None)[..., :m.v_head_dim]
-        live = max(0, min(c, s - f * c))
-        cache["ckv"][:, :live] = ckv[:, f * c:f * c + live]
-        cache["k_rope"][:, :live] = k_rope[:, f * c:f * c + live]
+        if mode == "prefill":
+            n, f, c = _seq_layout(pc, pc.cap, cache["ckv"].shape[1])
+            live = max(0, min(c, s - f * c))
+            cache["ckv"][:, :live] = ckv[:, f * c:f * c + live]
+            cache["k_rope"][:, :live] = k_rope[:, f * c:f * c + live]
         return _row_proj(out, p["wo"], pc, h_all)
 
+    n, f, c = _seq_layout(pc, pc.cap, cache["ckv"].shape[1])
     slot, valid = _decode_lengths(length, pc.cap, None, b)
     own, lslot = _owner(slot, f, c, b)
     old = _write_owned(cache, {"ckv": ckv, "k_rope": k_rope}, own, lslot)

@@ -309,10 +309,27 @@ def row_parallel(a, w, pc):
     whose partials are summed in the activation dtype."""
     lead = a.shape[:-1]
     a2 = a.reshape(-1, a.shape[-1])
-    y = (a2 @ w if a.dtype == torch.float32
-         else torch.mm(a2, w, out_dtype=torch.float32))
+    y = a2 @ w if a.dtype == torch.float32 else _MmF32.apply(a2, w)
     y = pc.mesh.all_reduce(y.reshape(*lead, w.shape[-1]), pc.model_axis)
     return y.to(a.dtype)
+
+
+class _MmF32(torch.autograd.Function):
+    """``torch.mm(a, w, out_dtype=torch.float32)`` of half-precision
+    operands, which has no derivative of its own: its backward takes the
+    fp32 grad back to the operands' dtype and forms the two products
+    there, as the unsharded half-precision product's backward does."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        return torch.mm(a, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        g = g.to(a.dtype)
+        return g @ w.T, a.T @ g
 
 
 def ffn_apply(p, x, act: str, pc=None, d_ff: int | None = None):

@@ -98,28 +98,36 @@ class Model:
         Training takes the reference's plain route: the dense MoE dispatch
         and ``attention_core``. A model with ``kernels`` attached raises
         ValueError: the CUDA ``moe_gmm`` has no backward, so its expert
-        leaves would get no grad on the card. So does an expert-parallel
-        ``pc`` (sharded training is not ported) and a ``replication``
+        leaves would get no grad on the card. So does a ``replication``
         (each copy of an expert would get its own grad, and the copies
-        would stop being identical)."""
+        would stop being identical) and the EP engines' ``pc`` without a
+        mesh (its ranks each hold every expert leaf, so a step would train
+        copies; the reference trains on a mesh). A mesh ``pc`` runs the
+        rank program (``sharding.make_pc``): params and batch are this
+        rank's shards, the logits come back gathered over the vocab, and
+        the MoE layers dispatch over the mesh's EP group ("ep" or
+        "aurora"); its grads follow ``distributed.mesh``'s convention
+        (``training.loop.loss_and_grads``)."""
+        pc = self.pc
         if self.kernels is not None:
             raise ValueError("train_logits runs the plain route: the "
                              "kernels have no backward (use a Model "
                              "without with_kernels)")
-        if self.pc is not None and self.pc.expert_parallel:
-            raise ValueError("expert-parallel training is not ported")
-        if self.pc is not None and self.pc.mesh is not None:
-            raise ValueError("sharded training on a mesh is not ported "
-                             "(ROADMAP A5)")
+        if pc is not None and pc.mesh is None and pc.expert_parallel:
+            raise ValueError("expert-parallel training runs on a mesh pc "
+                             "(sharding.make_pc), not the EP engines' "
+                             "layout")
         if self.replication is not None:
             raise ValueError("replicated experts cannot be trained: their "
                              "copies would drift apart")
+        if pc is not None and pc.mesh is None:
+            pc = None
         enc_out = None
         if self.cfg.is_encoder_decoder:
-            enc_out = tf.encode(params, self.cfg, batch["frames"])
+            enc_out = tf.encode(params, self.cfg, batch["frames"], pc)
         return tf.forward(params, self.cfg, tokens=batch.get("tokens"),
                           embeds=batch.get("embeds"), enc_out=enc_out,
-                          mode="train", remat=remat)
+                          mode="train", remat=remat, pc=pc)
 
     # -- serving -----------------------------------------------------------
     def prefill(self, params, inputs, cache, collect_moe_stats: bool = False,

@@ -566,7 +566,7 @@ def moe_apply_mesh(p, x, moe, act: str, pc: ParallelContext,
     global batch densely over the replicated experts, as the reference's
     dense path does over the whole batch. The shared expert is
     tensor-parallel over ``model`` (``ffn_apply``). Returns (y, aux)."""
-    from ..distributed.alltoall import (_local_dispatch_combine,
+    from ..distributed.alltoall import (_local_dispatch_combine, ep_mean,
                                         resolve_ep_rounds)
     shape = x.shape
     d = shape[-1]
@@ -583,7 +583,7 @@ def moe_apply_mesh(p, x, moe, act: str, pc: ParallelContext,
         ys, auxes, _ = body([xs], [valid], p["router"], p["experts"], moe,
                             act, group, resolve_ep_rounds(pc, group.n),
                             kernels=kernels)
-        y, aux = back(ys[0]), group.mean(auxes)
+        y, aux = back(ys[0]), ep_mean(auxes, group)
     else:
         data = pc.data_axes
         xg = mesh.all_gather(xt, 0, data) if data else xt

@@ -416,7 +416,9 @@ def forward(params, cfg, *, tokens=None, mode, cache=None, kernels=None,
     (one pass over a segment position's kinds, the reference's scanned
     ``block``) under ``torch.utils.checkpoint`` when grad is enabled: its
     activations are recomputed in the backward instead of kept, the
-    reference's ``jax.checkpoint``; grads are the same.
+    reference's ``jax.checkpoint``; grads are the same. On a mesh the
+    recompute replays the block's collective results (``RankMesh.
+    remat_contexts``) and moves nothing.
 
     prefill: tokens (B, S), or for a patch-input config ``embeds`` (B, S,
     frontend_dim) through the frontend projection (no sqrt(d_model) scale,
@@ -473,6 +475,11 @@ def forward(params, cfg, *, tokens=None, mode, cache=None, kernels=None,
                     collect_stats=collect_moe_stats, replication=replication,
                     pc=pc, pos3=pos3, shared=shared, enc_out=enc_out)
     checkpointed = remat and torch.is_grad_enabled()
+    ckpt_kw = {"use_reentrant": False}
+    if pc is not None and pc.mesh is not None:
+        # A block's recompute replays its collectives' results
+        # (``distributed.mesh``: remat moves no bytes twice).
+        ckpt_kw["context_fn"] = pc.mesh.remat_contexts
     for si, seg in enumerate(segments_of(cfg)):
         seg_params = params["segments"][si]
         seg_cache = cache["segments"][si] if cache is not None else None
@@ -481,7 +488,7 @@ def forward(params, cfg, *, tokens=None, mode, cache=None, kernels=None,
             args = (seg.kinds, seg_params, seg_cache, blk, x)
             if checkpointed:
                 x, aux, counts = torch.utils.checkpoint.checkpoint(
-                    _block, *args, use_reentrant=False, **layer_kw)
+                    _block, *args, **ckpt_kw, **layer_kw)
             else:
                 x, aux, counts = _block(*args, **layer_kw)
             aux_total = aux_total + aux

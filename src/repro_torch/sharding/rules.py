@@ -151,6 +151,23 @@ def param_specs(cfg, mesh):
                  lambda path, t: _leaf_spec(path, tuple(t.shape), mesh, ep))
 
 
+def split_axes(spec) -> tuple[str, ...]:
+    """The mesh axes a leaf of ``spec`` is split over (on any of its
+    dims), in spec order."""
+    out = []
+    for entry in spec:
+        if entry is not None:
+            out.extend((entry,) if isinstance(entry, str) else entry)
+    return tuple(out)
+
+
+def replica_axes(spec, mesh) -> tuple[str, ...]:
+    """The mesh axes that replicate a leaf of ``spec`` (on none of its
+    dims), in mesh order: a sharded step sums its grad over them."""
+    used = split_axes(spec)
+    return tuple(a for a in mesh.axis_names if a not in used)
+
+
 # ---------------------------------------------------------------------------
 # Caches and inputs
 # ---------------------------------------------------------------------------

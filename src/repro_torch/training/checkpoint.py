@@ -10,6 +10,16 @@ reference's ``np.savez`` writes a bf16 leaf as raw 2-byte void (``|V2``),
 and so does this module (the 16-bit pattern); on restore, a leaf whose
 manifest dtype is ``bfloat16`` is read back from its 16-bit pattern,
 whether stored as ``|V2`` or as a 16-bit integer.
+
+On a mesh (the rank program's training) ``shardings`` is ``(specs,
+rank_mesh)``: a spec tree matching the tree (``sharding.param_specs``
+for params and for AdamW moments, which lie like them; ``()`` for the
+step) and this rank's bound ``RankMesh``. ``save_checkpoint`` then
+gathers each leaf whole over the ranks (``bridge.gather_tensor``, one
+leaf at a time; every rank calls it) and rank 0 writes the whole
+leaves, so the files are the reference's whatever mesh wrote them;
+``restore_checkpoint`` reads whole leaves and hands each rank its shards
+(``bridge.shard_params``), the reference's re-sharding ``device_put``.
 """
 
 from __future__ import annotations
@@ -20,7 +30,8 @@ import os
 import numpy as np
 import torch
 
-from ..bridge import tree_leaves, tree_unflatten
+from ..bridge import gather_tensor, shard_params, spec_leaves, \
+    tree_leaves, tree_unflatten
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -49,10 +60,24 @@ def _treedef(tree) -> str:
     return f"PyTreeDef({walk(tree)})"
 
 
-def save_checkpoint(path: str, tree, step: int | None = None) -> None:
-    os.makedirs(path, exist_ok=True)
+def save_checkpoint(path: str, tree, step: int | None = None,
+                    shardings=None) -> None:
+    """Write ``tree`` (with ``shardings``: this rank's shards; every rank
+    calls it and rank 0 writes the whole leaves)."""
     leaves = tree_leaves(tree)
-    arrays = {f"leaf_{i}": _to_numpy(t) for i, t in enumerate(leaves)}
+    if shardings is not None:
+        specs, mesh = shardings
+        arrays = {}
+        for i, (t, spec) in enumerate(zip(leaves, spec_leaves(tree,
+                                                               specs))):
+            whole = gather_tensor(t, spec, mesh)
+            if mesh.rank == 0:
+                arrays[f"leaf_{i}"] = _to_numpy(whole)
+        if mesh.rank != 0:
+            return
+    else:
+        arrays = {f"leaf_{i}": _to_numpy(t) for i, t in enumerate(leaves)}
+    os.makedirs(path, exist_ok=True)
     np.savez(os.path.join(path, "arrays.npz"), **arrays)
     manifest = {"treedef": _treedef(tree), "n_leaves": len(leaves),
                 "step": step, "dtypes": [_dtype_name(t) for t in leaves]}
@@ -74,10 +99,12 @@ def _leaf(a: np.ndarray, dtype: str, like) -> torch.Tensor:
     return t.to(like.device)
 
 
-def restore_checkpoint(path: str, like_tree):
+def restore_checkpoint(path: str, like_tree, shardings=None):
     """A new tree of ``like_tree``'s structure (a template of tensors: its
     shapes must match, and each leaf lands on its template's device) with
-    the checkpoint's leaves in their stored dtypes."""
+    the checkpoint's leaves in their stored dtypes; with ``shardings``
+    (the template is then of the whole leaves), this rank's shards of
+    them."""
     with open(os.path.join(path, "manifest.json")) as f:
         dtypes = json.load(f)["dtypes"]
     like = tree_leaves(like_tree)
@@ -87,7 +114,11 @@ def restore_checkpoint(path: str, like_tree):
                              f"template has {len(like)}")
         leaves = [_leaf(data[f"leaf_{i}"], dtypes[i], t)
                   for i, t in enumerate(like)]
-    return tree_unflatten(like_tree, leaves)
+    tree = tree_unflatten(like_tree, leaves)
+    if shardings is not None:
+        specs, mesh = shardings
+        tree = shard_params(tree, specs, mesh, mesh.rank)
+    return tree
 
 
 def checkpoint_step(path: str) -> int | None:

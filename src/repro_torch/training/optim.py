@@ -9,6 +9,12 @@ params and moments are updated in place under ``torch.no_grad()``, with
 the same result. Each leaf is updated in slices of ``SLICE`` elements, so
 the fp32 temporaries stay bounded however large the leaf (a full-width
 stacked expert leaf is 3.4 GB in fp32).
+
+On a mesh (the rank program's step, ``training.loop``) params, grads and
+moments are this rank's shards, the moments shaped like its shards as
+the reference's inherit the params' sharding, and the global grad norm
+counts each element once: a leaf's sum of squares is summed over the
+axes that split it (``sharding.split_axes``), never over its replicas.
 """
 
 from __future__ import annotations
@@ -17,8 +23,9 @@ import dataclasses
 
 import torch
 
-from ..bridge import map_tree, tree_leaves
+from ..bridge import map_tree, spec_leaves, tree_leaves
 from ..models.transformer import torch_dtype
+from ..sharding import split_axes
 
 SLICE = 1 << 24                    # elements per slice of a leaf's update
 
@@ -49,17 +56,33 @@ def _slices(t):
     return t.view(-1).split(SLICE)
 
 
+def _global_sumsq(sq, grads, mesh, specs):
+    """The sum of the leaves' sums of squares ``sq`` over the whole model:
+    on a mesh, the leaves split over the same axes are summed and that
+    sum all-reduced over those axes (a replicated leaf's is its own)."""
+    if mesh is None:
+        return sum(sq)
+    groups = {}
+    for s, spec in zip(sq, spec_leaves(grads, specs)):
+        groups.setdefault(mesh.layout.axes(split_axes(spec)), []).append(s)
+    return sum(mesh.all_reduce(torch.stack(parts).sum(), axes)
+               for axes, parts in groups.items())
+
+
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: AdamWConfig):
+def adamw_update(params, grads, state, cfg: AdamWConfig, mesh=None,
+                 specs=None):
     """One AdamW step with global-norm clipping, in place. Returns
     (params, state): the same trees, updated, with ``state["step"]`` a new
-    int32 tensor. Every scalar stays a device tensor (no host sync)."""
+    int32 tensor. Every scalar stays a device tensor (no host sync).
+    ``mesh`` (this rank's ``RankMesh``) and ``specs`` (the params'
+    ``param_specs``): the rank program's step over this rank's shards."""
     step = state["step"] + 1
     lp, lg = tree_leaves(params), tree_leaves(grads)
     lm, lv = tree_leaves(state["m"]), tree_leaves(state["v"])
-    gnorm = torch.sqrt(sum(sum(torch.sum(torch.square(s.float()))
-                               for s in _slices(g.contiguous()))
-                           for g in lg))
+    sq = [sum(torch.sum(torch.square(s.float()))
+              for s in _slices(g.contiguous())) for g in lg]
+    gnorm = torch.sqrt(_global_sumsq(sq, grads, mesh, specs))
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     t = step.float()
     lr = cfg.lr * torch.clamp(t / max(cfg.warmup_steps, 1), max=1.0)

@@ -27,9 +27,10 @@ the CPU.
   and ``PartitionSpec``s (each leaf's bytes over the product of the sizes
   of the axes on its dims), as do the dry run's per-device records on the
   16 x 16 and 2 x 16 x 16 meshes.
-- A mesh train record keeps its specs' arguments (no rank program:
-  ROADMAP A5); the SSM, hybrid and encoder-decoder families build on a
-  mesh and their serving records are traced.
+- A mesh train record is traced from rank 0's train step (its
+  arguments exact, its collective bytes those of the thread transport's
+  rank 0 at a reduced shape); the SSM, hybrid and encoder-decoder
+  families build on a mesh and their serving records are traced.
 """
 
 import functools
@@ -328,24 +329,45 @@ def test_dryrun_mesh_records(tmp_path, capsys):
 
 
 def test_train_and_deferred_pairs_keep_exact_arguments():
-    """A train pair on a mesh has no rank program (ROADMAP A5): exact
-    arguments from the shards (params and AdamW moments), FLOPs and temp
-    from the one-card trace, said so in ``figures``. The SSM, hybrid and
-    encoder-decoder families build on a mesh whose ``model`` axis splits,
-    and their serving records on the 16 x 16 mesh are traced from rank
-    0's rank program, collective bytes included."""
+    """A train pair on a mesh is traced from rank 0's rank program like a
+    serving pair: exact arguments from the shards (params and AdamW
+    moments), FLOPs and collective bytes (forward and backward) traced,
+    said so in ``figures``; at a reduced shape on (2, 2) rank 0's
+    ``CountingMesh`` train step moves the collective bytes of the thread
+    transport's rank 0, exactly. The SSM, hybrid and encoder-decoder
+    families build on a mesh whose ``model`` axis splits, and their
+    serving records on the 16 x 16 mesh are traced from rank 0's rank
+    program, collective bytes included."""
     cfg = get_config("phi3.5-moe-42b-a6.6b").reduced()
     shape = InputShape("t_train", 16, 4, "train")
     rec, = dryrun.run_mesh_pair(cfg, shape, (False,))
     step, args, _ = specs.lowering_args(
         cfg, shape, MeshLayout((16, 16), ("data", "model")))
-    assert step is None
     assert rec["memory"]["argument_size_in_bytes"] == dryrun.tree_bytes(args)
-    assert rec["cost"]["collective_bytes"] is None
-    assert "cost.flops" in rec["figures"]["reckoned"]
-    assert "ROADMAP A5" in rec["figures"]["note"]
-    one_card = dryrun.trace_step(*specs.step_args(cfg, shape))
-    assert rec["cost"]["flops"] == one_card["flops"]
+    assert rec["cost"]["collective_bytes"] > 0
+    assert {"cost.flops", "cost.collective_bytes"} <= set(
+        rec["figures"]["traced"])
+    assert rec["cost"]["flops"] == dryrun.trace_step(step, args)["flops"]
+    small = MeshLayout((2, 2), ("data", "model"))
+    step, args, rm0 = specs.lowering_args(cfg, shape, small)
+    dryrun.trace_step(step, args)
+    params_np, _, _, _ = _reference("phi3.5-moe-42b-a6.6b")
+
+    def body(rm):
+        from repro_torch.bridge import shard_params, shard_tensor, to_torch
+        from repro_torch.sharding import input_sharding, param_specs
+        from repro_torch.training import adamw_init, make_train_step
+        model = Model(cfg, device="cpu", pc=make_pc(cfg, rm, batch=4, cap=16))
+        opt_cfg = specs.opt_config_for(cfg)
+        params = shard_params(to_torch(params_np), param_specs(cfg, rm), rm,
+                              rm.rank)
+        tokens = shard_tensor(torch.ones((4, 16), dtype=torch.int32),
+                              input_sharding(cfg, rm, 4), rm, rm.rank)
+        make_train_step(model, opt_cfg)(params, adamw_init(params, opt_cfg),
+                                        {"tokens": tokens})
+        return rm.collective_bytes
+
+    assert ThreadMesh(small).run(body)[0] == rm0.collective_bytes > 0
     layout = MeshLayout((1, 4), ("data", "model"))
     for arch in ("mamba2-1.3b", "zamba2-7b", "seamless-m4t-large-v2"):
         cfg = get_config(arch).reduced()
