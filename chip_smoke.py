@@ -99,16 +99,17 @@ non-zero:
    The exchange is in-process: no network cost is measured.
 14. serve_dense, beside the still loaded phi3.5-MoE, one dense model at
    a time (each freed before the next is made), full width in bf16:
-   phi4-mini (32 layers, G = 3) on the serve stream one-shot and with
-   chunks of 64, through ``ServingEngine`` (8 prompts of 128 tokens, 32
-   new) and in ``ColocatedContinuousEngine`` beside phi3.5-MoE (both on
-   the serve stream); gemma-7b (28 layers, G = 1, D = 256) one-shot;
-   gemma3-27b cut to 12 layers (2 x LLLLLG, cache 4096, rings of 1024,
+   phi4-mini cut to 8 of 32 layers (G = 3) on the serve stream one-shot
+   and with chunks of 64, through ``ServingEngine`` (8 prompts of 128
+   tokens, 32 new) and in ``ColocatedContinuousEngine`` beside
+   phi3.5-MoE (both on the serve stream); gemma-7b cut to 8 of 28 layers
+   (G = 1, D = 256) one-shot;
+   gemma3-27b cut to 6 layers (one LLLLLG block, cache 4096, rings of 1024,
    prompts padded to multiples of 64) on the first 8 requests of the
    serve stream and a 1000-token and a 2100-token prompt; qwen3-32b cut
-   to 8 layers (q/k-norm, G = 8) one-shot. Gates: every request
+   to 4 layers (q/k-norm, G = 8) one-shot. Gates: every request
    complete, exact launch counts (``decode_attn`` once per layer and
-   decode step, ``moe_gmm`` 0; colocated: 8 + 32 ``decode_attn`` a step,
+   decode step, ``moe_gmm`` 0; colocated: 8 + 8 ``decode_attn`` a step,
    8 ``moe_gmm`` a step and a phi3.5 prefill), finite logits, the peak
    beyond what was held before within 2 GB of the model's weights and
    caches (the peak over the weights alone printed beside it), gemma3's
@@ -137,6 +138,20 @@ non-zero:
    the serve numbers, a profile of three of each arch's frozen decode
    steps (3000-5000 kernels a step make a longer trace slow to read), and
    whether mamba2's chunked stream equals its one-shot one (not gated).
+   Then mamba2, zamba2 and qwen2-vl, each still held, serve their stream
+   beside phi3.5-MoE serving the serve stream in
+   ``ColocatedContinuousEngine`` (8 slots, cache 512, kernels on; no
+   pairing: the families have no experts), and mamba2, kept until
+   qwen2-vl is loaded, serves with both in ``MultiTenantContinuousEngine``.
+   Gates: every request complete, finite logits, each tenant's stream
+   its solo stream (the same kernels on the same batch shapes), exact
+   launch counts per tenant (``decode_attn`` per attention layer and
+   lockstep step, told apart by heads and head_dim; ``moe_gmm`` per
+   phi3.5 MoE layer and decode or prefill), the peak within 2 GB of the
+   weights and caches. Printed: the lockstep step's mean, p50 and p95
+   beside the sum of the tenants' solo step means, and a profile of one
+   frozen lockstep step. SeamlessM4T does not colocate: the
+   engines pass no frames to its encoder.
 16. serve_deepseek, run last, after the phi3.5 model, params and engines
    are freed (under 1 GB must stay allocated): full-width DeepSeek-V3 cut
    to 5 layers (the 3 published dense layers and 2 MoE layers; MLA, 256
@@ -202,13 +217,14 @@ non-zero:
    32, 112, 128) (zamba2) and (8, 16, 16, 64, 128) (SeamlessM4T), fill
    levels 0 to 128 (output within 2e-2, LSE within 1e-5, an empty shard's
    LSE -inf), and with a null LSE (the same output bit for bit). Then
-   phi3.5-MoE at 8 layers (the loaded
-   params cut into 4 shards: experts over (data, model), heads 32/4, kv
-   heads 8/4, vocab over model; capacity factor 8.0 on both sides, so no
-   token is dropped by either dispatch), the same in fp32 at 2 layers,
-   qwen3-32b at 8 of 64 layers (head-parallel dense, made and freed
-   here), then mamba2-1.3b at 8 of 48 layers, zamba2-7b at 14 of 81 (two
-   uses of the shared block) and SeamlessM4T at 4 encoder and 4 decoder
+   phi3.5-MoE at 2 layers (the loaded
+   params' first 2 layers cut into 4 shards: experts over (data, model),
+   heads 32/4, kv heads 8/4, vocab over model; capacity factor 8.0 on
+   both sides, so no token is dropped by either dispatch), the same in
+   fp32 at 2 layers, qwen3-32b at 2 of 64 layers (head-parallel dense,
+   made and freed here), then mamba2-1.3b at 4 of 48 layers, zamba2-7b
+   at 14 of 81 (two uses of the shared block) and SeamlessM4T at 4
+   encoder and 4 decoder
    layers over frames (8, 128, 1024) (32 source positions a rank), each
    in bf16 and again in fp32 at 2, 7 and 2 + 2 layers, each made and
    freed here; each on 8 prompts of 380 tokens with a cache of 512 (128
@@ -2212,9 +2228,11 @@ def _rank_moe_timing(model, params, epd, c, sizes, gen, flush):
             "bound_share": b_ms / ms}
 
 # The dense families at full width: (arch, depth cut or None, cache cap).
-DENSE_SERVED = (("phi4-mini-3.8b", None, CACHE_CAP),
-                ("gemma-7b", None, CACHE_CAP), ("gemma3-27b", 12, 4096),
-                ("qwen3-32b", 8, CACHE_CAP))
+# (arch, depth cut, cache): every width kept, the depths cut so that the
+# whole script stays well inside its time limit.
+DENSE_SERVED = (("phi4-mini-3.8b", 8, CACHE_CAP),
+                ("gemma-7b", 8, CACHE_CAP), ("gemma3-27b", 6, 4096),
+                ("qwen3-32b", 4, CACHE_CAP))
 
 
 @contextlib.contextmanager
@@ -2223,7 +2241,9 @@ def _attn_tally():
     sites: ``t["shapes"][(H, S)]``, ``decode_attn``'s launches by the
     shape they ran at (each call of ``attention.decode_attn_auto`` adds
     the kernel counter's rise during that call under its q's heads and
-    its cache's positions); ``t["ring_prefill"]``, layer calls of a fresh
+    its cache's positions), and ``t["heads_dim"][(H, D)]`` the same by
+    its q's heads and head_dim (which tells colocated tenants apart);
+    ``t["ring_prefill"]``, layer calls of a fresh
     prefill that wrote a ring smaller than its prompt (``pos % cap``);
     ``t["ring_decode"]``, live rows whose decode write wrapped a full ring
     back to slot 0 (``length == cap``), summed over the ring layers' calls
@@ -2231,7 +2251,9 @@ def _attn_tally():
     import torch
     from repro_torch.kernels.decode_attn import decode_attn
     from repro_torch.models import attention as tattn
-    t = {"shapes": collections.Counter(), "ring_prefill": 0, "ring_decode": 0}
+    t = {"shapes": collections.Counter(),
+         "heads_dim": collections.Counter(), "ring_prefill": 0,
+         "ring_decode": 0}
     wraps = []
     auto, block = tattn.decode_attn_auto, tattn.attn_block
 
@@ -2239,6 +2261,7 @@ def _attn_tally():
         n = decode_attn.launches
         out = auto(q, k, *args, **kw)
         t["shapes"][(q.shape[1], k.shape[1])] += decode_attn.launches - n
+        t["heads_dim"][(q.shape[1], q.shape[-1])] += decode_attn.launches - n
         return out
 
     def observed_block(p, x, **kw):
@@ -2375,13 +2398,14 @@ def _dense_run(phase, model, params, cap, config, reqs, other_gb):
 def phase_serve_dense(moe_model, moe_params, moe_streams):
     """The dense families at full width, one model at a time (each freed
     before the next is made), beside the served phi3.5-MoE (still held):
-    phi4-mini (32 layers; G = 3) on the serve stream one-shot and with
-    chunks of 64, then through ``ServingEngine`` (8 prompts of 128 tokens,
-    32 new) and, beside phi3.5-MoE, in ``ColocatedContinuousEngine``;
-    gemma-7b (28 layers; G = 1, D = 256) one-shot; gemma3-27b cut to 12
-    layers (2 x LLLLLG; cache 4096, rings of 1024; prompts padded to
+    phi4-mini cut to 8 of 32 layers (G = 3) on the serve stream one-shot
+    and with chunks of 64, then through ``ServingEngine`` (8 prompts of
+    128 tokens, 32 new) and, beside phi3.5-MoE, in
+    ``ColocatedContinuousEngine``; gemma-7b cut to 8 of 28 layers (G = 1,
+    D = 256) one-shot; gemma3-27b cut to 6
+    layers (one LLLLLG block; cache 4096, rings of 1024; prompts padded to
     multiples of 64) on the long stream (``_dense_stream``); qwen3-32b cut
-    to 8 layers (q/k-norm; G = 8) one-shot. Gates: every request
+    to 4 layers (q/k-norm; G = 8) one-shot. Gates: every request
     complete, exact launch counts, finite logits, peak memory, the flash
     branch taken and rings wrapped (gemma3), each colocated tenant's
     stream its solo stream, and ``decode_attn`` within 2e-2 of its plain
@@ -2574,7 +2598,7 @@ def _colocated_dense(phase, moe_model, moe_params, moe_streams, model,
     ``ColocatedContinuousEngine`` (kernel path; no pairing: B has no
     experts), both on the serve stream. Gates: each tenant's stream
     equals its solo stream, every request complete, exact launch counts
-    (``decode_attn`` 8 + 32 per lockstep step, ``moe_gmm`` 8 per step and
+    (``decode_attn`` 8 + 8 per lockstep step, ``moe_gmm`` 8 per step and
     per A prefill; ``decode_attn`` by shape, so by tenant), finite logits,
     the peak within 2 GB of phi4-mini's weights and both caches. Returns
     the run's ``decode_attn`` launches by (H, S) and the MoE tenant's
@@ -2651,7 +2675,7 @@ def _logits_finite():
     seen["finite"] = bool(torch.stack(flags).all()) if flags else None
 
 
-def phase_serve_families(moe_cfg):
+def phase_serve_families(moe_model, moe_params, moe_streams, moe_solo):
     """The SSM, hybrid, vlm and audio families at full width and depth,
     bf16, seeded weights, one model at a time (each freed before the next
     is made), beside the served phi3.5-MoE (still held): mamba2-1.3b (48
@@ -2669,15 +2693,40 @@ def phase_serve_families(moe_cfg):
     timed beside SDPA and its bound. Printed: the serve numbers, a profile
     of three frozen decode steps per arch, and whether mamba2's chunked stream
     equals its one-shot one (bf16 chunk boundaries may move an argmax: not
-    gated). Returns the ``kernels`` rows of ``decode_attn``."""
+    gated). Then each of mamba2, zamba2 and qwen2-vl, still held, serves
+    its stream beside phi3.5-MoE (``moe_model``, ``moe_params``, its
+    streams and solo serve numbers) serving the serve stream, in
+    ``ColocatedContinuousEngine``; mamba2 is kept until qwen2-vl is
+    loaded, and the three serve together in
+    ``MultiTenantContinuousEngine`` (``_colocated_family``: each stream
+    its solo stream, exact launches per tenant). SeamlessM4T does not
+    colocate: the engines pass no frames. Returns the ``kernels`` rows of
+    ``decode_attn`` and phi3.5's launches of each kernel in the colocated
+    runs."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.models import attention as tattn
     from repro_torch.serving import EngineConfig
     t_phase = time.perf_counter()
+    moe_cfg = moe_model.cfg
+    moe = {"model": moe_model, "params": moe_params, "solo": moe_streams,
+           "solo_step_ms": moe_solo["step_ms_mean"],
+           "reqs": lambda: _stream(moe_cfg, 10, 64, 200, 16, 64, seed=0)}
+    moe_part = {"moe_gmm": 0, "decode_attn": 0}
+    colocated = collections.Counter()          # families' decode_attn
+    held = None                                # mamba2, for 3 tenants
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     rows, tol = [], 2e-2
+
+    def colocate(tenants, other_gb):
+        part, fams = _colocated_family("serve_families", moe, tenants,
+                                       other_gb)
+        for k in moe_part:
+            moe_part[k] += part[k]
+        colocated.update(fams)
+        gc.collect()                  # the engine's step closures cycle
+        torch.cuda.empty_cache()
     for arch in FAMILIES:
         t_arch = time.perf_counter()
         phase = f"serve_families[{arch}]"
@@ -2702,7 +2751,9 @@ def phase_serve_families(moe_cfg):
             # two vocabularies (zamba2's 32000 is under phi3.5's 32064).
             vcfg = dataclasses.replace(moe_cfg, vocab=min(moe_cfg.vocab,
                                                           cfg.vocab))
-            reqs = _stream(vcfg, 10, 64, 200, 16, 64, seed=0)
+            def family_reqs(vcfg=vcfg):
+                return _stream(vcfg, 10, 64, 200, 16, 64, seed=0)
+            reqs = family_reqs()
             eng, launches, numbers, tally = _dense_run(
                 phase, model, params, CACHE_CAP, EngineConfig(kernels=True),
                 reqs, other_gb)
@@ -2746,15 +2797,32 @@ def phase_serve_families(moe_cfg):
                          "replaces": "src/repro/kernels/decode_attn.py:91",
                          "arch": arch, "launches": sum(launched.values()),
                          **row})
-        del model, params, step, call
+        del step, call
         if not cfg.is_encoder_decoder:
             del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+            tenant = {"model": model, "params": params,
+                      "reqs": family_reqs, "other_gb": other_gb,
+                      "solo": [list(r.out_tokens) for r in reqs],
+                      "solo_step_ms": numbers["step_ms_mean"]}
+            colocate([tenant], other_gb)
+            if cfg.family == "vlm" and held is not None:
+                colocate([held, tenant], held["other_gb"])
+                held = None
+            elif cfg.family == "ssm":
+                held = tenant
+            del tenant
+        del model, params
         gc.collect()
         torch.cuda.empty_cache()
         emit("serve_families", arch=arch,
              seconds=time.perf_counter() - t_arch)
+    require(held is None, "serve_families", "the 3-tenant run did not run")
+    for r in rows:
+        r["launches"] += colocated[r["arch"]]
     emit("serve_families", seconds=time.perf_counter() - t_phase)
-    return rows
+    return rows, moe_part
 
 
 def _ssm_chunk_witness(phase, model, params, n: int = 300,
@@ -2907,6 +2975,122 @@ def _static_family(phase, model, params, head, other_gb):
             f"{len(calls)} decode_attn calls in a decode step")
     return step, calls[0], collections.Counter(tally["shapes"])
 
+
+def _engine_pools(eng) -> list:
+    """The slot pools of a colocated engine, tenant by tenant."""
+    return list(getattr(eng, "pools", None) or (eng.pool_a, eng.pool_b))
+
+
+def _lockstep_frozen(eng):
+    """A lockstep decode step as the colocated engine runs it, every row of
+    every tenant frozen (the served caches are left as they are): each
+    tenant's decode, then each argmax copied to the host."""
+    import torch
+    pools = _engine_pools(eng)
+    masks = [torch.zeros(SLOTS, dtype=torch.bool, device=p.device)
+             for p in pools]
+
+    def step():
+        out = eng._step([p.params for p in pools], [p.tokens for p in pools],
+                        [p.cache for p in pools], masks)
+        for p, logits in zip(pools, out[0]):
+            torch.argmax(logits[:, :, :p.model.cfg.vocab], dim=-1).cpu()
+    return step
+
+
+def _colocated_family(phase, moe, tenants, other_gb):
+    """The served phi3.5-MoE beside family tenants on the card (kernel path,
+    ``SLOTS`` slots, cache ``CACHE_CAP``): with one tenant in
+    ``ColocatedContinuousEngine`` (no pairing: the family has no
+    experts), with more in ``MultiTenantContinuousEngine``. ``moe`` and
+    each of ``tenants``: a dict of ``model``, ``params``, ``reqs`` (a
+    factory of its request stream), ``solo`` (the streams it emitted
+    served alone) and ``solo_step_ms`` (its solo decode step's mean).
+    Every tenant serves its own stream, after a one-request warm-up.
+    Gates: every request complete; exact launch counts per tenant
+    (``decode_attn`` once per attention layer of each tenant and lockstep
+    step, told apart by (heads, head_dim) at the call sites, and by (H,
+    S) for the run; ``moe_gmm`` once per MoE layer of phi3.5's decodes
+    and prefills); finite logits of every pool; each tenant's stream its
+    solo stream (the same kernels on the same batch shapes, and no
+    decode drop: 8 rows top-2 fill at most 8 of an expert's 8 places);
+    the peak beyond ``other_gb`` within 2 GB of the families' weights and
+    every tenant's cache (``_peak_gate``). Printed: the serve numbers,
+    the lockstep step's mean, p50 and p95 beside the sum of the tenants'
+    solo step means, and a profile of one frozen lockstep step (busy ms,
+    idle share). Returns phi3.5's launches of each kernel and each
+    family's ``decode_attn`` launches, by arch."""
+    from repro_torch.serving import (ColocatedContinuousEngine,
+                                     EngineConfig,
+                                     MultiTenantContinuousEngine)
+    t0 = time.perf_counter()
+    everyone = [moe] + tenants
+    archs = [t["model"].cfg.arch_id for t in everyone]
+    run = f"{phase}[colocated:{'+'.join(archs[1:])}]"
+    config = EngineConfig(kernels=True)
+    if len(tenants) == 1:
+        eng = ColocatedContinuousEngine(
+            moe["model"], tenants[0]["model"], moe["params"],
+            tenants[0]["params"], batch_slots=SLOTS, cache_cap=CACHE_CAP,
+            config=config)
+    else:
+        eng = MultiTenantContinuousEngine(
+            [t["model"] for t in everyone], [t["params"] for t in everyone],
+            batch_slots=SLOTS, cache_cap=CACHE_CAP, config=config)
+    pools = _engine_pools(eng)
+    warm = [_stream(t["model"].cfg, 1, 64, 64, 2, 2, seed=2)
+            for t in everyone]
+    if len(tenants) > 1:
+        eng.serve(warm)
+    else:
+        eng.serve(*warm)
+    reqs = [t["reqs"]() for t in everyone]
+    pre_a = pools[0].prefills
+    with _attn_tally() as tally:
+        launches, calls, numbers = _serve_run(eng, list(zip(pools, reqs)))
+    steps = calls["decode_steps"]
+    cfgs = [p.model.cfg for p in pools]
+    per_tenant = {a: tally["heads_dim"][(c.n_heads, c.head_dim)]
+                  for a, c in zip(archs, cfgs) if _attn_layers(c)}
+    want = {a: steps * _attn_layers(c) for a, c in zip(archs, cfgs)
+            if _attn_layers(c)}
+    require(per_tenant == want and len({(c.n_heads, c.head_dim)
+                                        for c in cfgs if _attn_layers(c)})
+            == len(want), run, f"decode_attn launches by tenant "
+            f"{per_tenant} != expected {want}")
+    want = {"decode_attn": steps * sum(_attn_layers(c) for c in cfgs),
+            "moe_gmm": (steps + pools[0].prefills - pre_a)
+            * cfgs[0].n_layers}
+    require(launches == want, run, f"launch counts {launches} != {want}")
+    want = sum((_attn_shapes(c, CACHE_CAP, steps) for c in cfgs),
+               collections.Counter())
+    require(tally["shapes"] == want, run, f"decode_attn launches by (H, S) "
+            f"{dict(tally['shapes'])} != expected {dict(want)}")
+    require(all(len(r.out_tokens) == r.max_new_tokens
+                for rs in reqs for r in rs), run,
+            "a request did not get all its tokens")
+    for pool in pools:
+        _finite_decode(run, pool, pool.params)
+    same = {a: [list(r.out_tokens) for r in rs] == t["solo"]
+            for a, rs, t in zip(archs, reqs, everyone)}
+    gate = _peak_gate(run, numbers["max_memory_allocated_GB"] - other_gb,
+                      [t["params"] for t in tenants],
+                      *[(p.model, CACHE_CAP) for p in pools])
+    solo_sum = sum(t["solo_step_ms"] for t in everyone)
+    emit("serve_families", ok=True, run="colocated", tenant_archs=archs,
+         engine=type(eng).__name__, **numbers, launches=launches,
+         decode_attn_by_tenant=per_tenant, equals_solo=same, **gate,
+         solo_step_ms_means=[t["solo_step_ms"] for t in everyone],
+         solo_step_ms_sum=solo_sum,
+         lockstep_over_solo_sum=numbers.get("step_ms_mean", 0) / solo_sum)
+    require(all(same.values()), run, f"colocated streams differ from the "
+            f"solo ones: {same}")
+    _profile("lockstep_" + "+".join(archs[1:]), _lockstep_frozen(eng), 1)
+    emit("serve_families", tenant_archs=archs,
+         seconds=time.perf_counter() - t0)
+    return ({"moe_gmm": launches["moe_gmm"],
+             "decode_attn": per_tenant[archs[0]]},
+            {a: n for a, n in per_tenant.items() if a != archs[0]})
 
 DS_LAYERS, DS_MOE_LAYERS = 5, 2  # DeepSeek-V3 cut: 3 dense + 2 MoE layers
 DS_SLICE = 32                    # experts per plain-version comparison
@@ -3956,6 +4140,7 @@ def phase_dryrun_train(cfg, params, opt, batch):
 # ---------------------------------------------------------------------------
 
 MESH_SHAPE = (1, 4)              # (data, model): 4 in-process ranks
+MESH_LAYERS = 2                  # phi3.5's and qwen3-32b's bf16 depth
 # Prompt tokens a row and greedy steps. With 128 cache positions a rank,
 # the prefill fills ranks 0 and 1 and 124 of rank 2's positions, and the
 # decode's writes (380-395) cross from rank 2's shard into rank 3's at
@@ -3974,7 +4159,7 @@ MESH_LSE_SHAPES = ((8, 8, 2, 128, 128), (8, 16, 2, 128, 128),
 # against the unsharded model, so its rank program is held within 0.06
 # of the fp32 copy, with layout faults planted to show the bound
 # catches them (``_mesh_model``).
-MESH_FAMILIES = (("mamba2-1.3b", 8, 2, None), ("zamba2-7b", 14, 7, 0.06),
+MESH_FAMILIES = (("mamba2-1.3b", 4, 2, None), ("zamba2-7b", 14, 7, 0.06),
                  ("seamless-m4t-large-v2", 4, 2, None))
 MESH_SRC = 128
 
@@ -4415,15 +4600,32 @@ def _mesh_model(phase, label, cfg, model, params, rows, flush, tol,
          seconds=time.perf_counter() - t_phase)
 
 
+def _cut_params(cfg, params, n: int):
+    """``params`` of ``cfg`` as those of ``cut_depth(cfg, n)``: each
+    segment's stacked leaves cut to the cut config's count (views; the
+    rank shards are made from them)."""
+    from repro_torch.bridge import map_tree
+    from repro_torch.configs import cut_depth
+    from repro_torch.models import transformer as tt
+    segs = tt.segments_of(cut_depth(cfg, n))
+    require([s.kinds for s in segs] == [s.kinds for s in tt.segments_of(
+        cfg)[:len(segs)]], "serve_mesh", "the cut changes the segments")
+    return {**params, "segments": tuple(
+        map_tree(lambda t, c=s.count: t[:c], seg)
+        for s, seg in zip(segs, params["segments"]))}
+
+
 def phase_serve_mesh(model, params):
     """``serve_mesh``: the reference's mesh layout as the rank program on
     4 in-process ranks of one card (a (1, 4) mesh: tensor parallelism,
     the experts over (data, model), the cache's sequence over ``model``)
-    at full width: phi3.5-MoE in bf16 at 8 layers (its params are the
-    loaded model's, cut into 4 rank shards; the capacity factor raised
+    at full width: phi3.5-MoE in bf16 at ``MESH_LAYERS`` layers (its
+    params are the loaded model's first layers, cut into 4 rank shards;
+    the capacity factor raised
     to 8.0 on both sides, so neither the unsharded dispatch nor the
     ranks' drop a token and the two are comparable), then in fp32 at 2
-    layers, then qwen3-32b in bf16 at 8 of 64 layers (head-parallel
+    layers, then qwen3-32b in bf16 at ``MESH_LAYERS`` of 64 layers
+    (head-parallel
     dense), then each of ``MESH_FAMILIES`` in bf16 and in fp32 at its
     depths (mamba2: every leaf and cache shard of its Mamba2 blocks;
     zamba2: two uses of the shared attention block among them;
@@ -4455,8 +4657,11 @@ def phase_serve_mesh(model, params):
     cfg = model.cfg
     cfg8 = dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, capacity_factor=8.0))
-    _mesh_model(phase, "phi3.5 bf16 (cf 8.0)", cfg8, Model(cfg8, device="cuda"),
-                params, rows, flush, tol=2e-2, median=True)
+    cut = cut_depth(cfg8, MESH_LAYERS)
+    _mesh_model(phase, f"phi3.5 bf16, {MESH_LAYERS} layers (cf 8.0)", cut,
+                Model(cut, device="cuda"), _cut_params(cfg8, params,
+                                                       MESH_LAYERS),
+                rows, flush, tol=2e-2, median=True)
     gc.collect()
     torch.cuda.empty_cache()
     f32 = dataclasses.replace(cfg8, n_layers=2, dtype="float32")
@@ -4467,7 +4672,7 @@ def phase_serve_mesh(model, params):
     del fparams, fmodel
     gc.collect()
     torch.cuda.empty_cache()
-    qcfg = cut_depth(get_config("qwen3-32b"), 8)
+    qcfg = cut_depth(get_config("qwen3-32b"), MESH_LAYERS)
     qmodel = Model(qcfg, device="cuda")
     qparams = qmodel.init(0)
     _mesh_model(phase, "qwen3-32b bf16", qcfg, qmodel, qparams, rows, flush,
@@ -4550,10 +4755,11 @@ def main() -> int:
             colocated, replicated, chaos, traced, ep))
         r["arch"] = model.cfg.arch_id
     dense_rows, colocated_moe = phase_serve_dense(model, params, streams)
+    family_rows, family_moe = phase_serve_families(model, params, streams,
+                                                   solo)
     for r in rows:
-        r["launches"] += colocated_moe[r["name"]]
-    rows += dense_rows
-    rows += phase_serve_families(model.cfg)
+        r["launches"] += colocated_moe[r["name"]] + family_moe[r["name"]]
+    rows += dense_rows + family_rows
     phase_dryrun_serve(model, params)
     rows += phase_serve_mesh(model, params)
     # The phi3.5 model, its params and engines go before DeepSeek-V3's

@@ -27,11 +27,6 @@ REGISTRY: dict[str, ModelConfig] = {
               seamless_m4t_large_v2)}
 ARCH_IDS: tuple[str, ...] = tuple(REGISTRY)
 
-# Families served on one model's engines only: their colocation is not
-# ported (ROADMAP A4). None of them has experts, so expert parallelism and
-# replication are refused for them as for any dense model.
-SOLO_FAMILIES = ("ssm", "hybrid", "vlm", "audio")
-
 
 def get_config(arch_id: str) -> ModelConfig:
     if arch_id not in REGISTRY:
@@ -39,16 +34,6 @@ def get_config(arch_id: str) -> ModelConfig:
     return REGISTRY[arch_id]
 
 
-def refuse_solo_family(cfg: ModelConfig) -> None:
-    """Raise ValueError if ``cfg`` is of a family that serves alone
-    (``SOLO_FAMILIES``): its colocation is ROADMAP A4's leftover."""
-    if cfg.family in SOLO_FAMILIES:
-        raise ValueError(
-            f"{cfg.arch_id} ({cfg.family}): colocation of the ssm, hybrid, "
-            "vlm and audio families is not ported (ROADMAP A4's leftover)")
-
-
 __all__ = ["MLAConfig", "ModelConfig", "MoEConfig", "SSMConfig", "InputShape",
            "SHAPES", "TRAIN_4K", "PREFILL_32K", "DECODE_32K", "LONG_500K",
-           "REGISTRY", "ARCH_IDS", "SOLO_FAMILIES", "cut_depth",
-           "get_config", "refuse_solo_family"]
+           "REGISTRY", "ARCH_IDS", "cut_depth", "get_config"]

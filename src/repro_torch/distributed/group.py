@@ -32,6 +32,8 @@ import contextlib
 
 import torch
 
+from ..device import current_cuda_device, resolve_device
+
 __all__ = ["DistGroup", "EPGroup", "LocalGroup", "inverse_round",
            "transpose_round"]
 
@@ -112,16 +114,17 @@ class EPGroup:
 
 
 class LocalGroup(EPGroup):
-    """``n`` virtual ranks in this process, all on ``device``. Each
+    """``n`` virtual ranks in this process, all on ``device`` (the card
+    unless another is given). Each
     exchange is a set of copies between the ranks' buffers; ``copies``
     and ``copy_bytes`` count the round copies (self-traffic excluded)."""
 
-    def __init__(self, n: int, device="cpu"):
+    def __init__(self, n: int, device="cuda"):
         if n < 1:
             raise ValueError(f"an EP group needs >= 1 rank, got {n}")
         self.n = int(n)
         self.ranks = tuple(range(self.n))
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._stream = None
         self.copies = 0
         self.copy_bytes = 0
@@ -192,9 +195,10 @@ class DistGroup(EPGroup):
     """This process's rank of a ``torch.distributed`` process group
     (``group=None``: the default group; ``members``: the global ranks of
     the group, in group-rank order). The process group must already be
-    initialised."""
+    initialised. ``device``: the current CUDA device when None (a gloo
+    group runs on ``"cpu"``)."""
 
-    def __init__(self, group=None, device="cpu", members=None):
+    def __init__(self, group=None, device=None, members=None):
         import torch.distributed as dist
         if not dist.is_initialized():
             raise RuntimeError("DistGroup needs an initialised process "
@@ -209,7 +213,8 @@ class DistGroup(EPGroup):
         if len(self.members) != self.n:
             raise ValueError(f"{len(self.members)} members for a group of "
                              f"{self.n}")
-        self.device = torch.device(device)
+        self.device = (current_cuda_device() if device is None
+                       else resolve_device(device))
 
     @property
     def transport(self) -> str:

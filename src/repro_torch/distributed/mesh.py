@@ -26,14 +26,16 @@ exchanges (the monolithic all-to-all or the rounds) also add theirs to
 Three transports, picked explicitly (no fallback from one to another):
 
 - ``ThreadMesh``: every rank a Python thread in this process, on one
-  device (the CPU tests; the card in ``chip_smoke.py``). A collective
+  device (the card by default; the CPU tests pass ``"cpu"``). A collective
   meets at a barrier of all ranks and each member combines the group's
   tensors in group order, so a sum is the same on every member and from
   run to run. The threads share the device's current stream, so a
   tensor another rank made is ready for this rank's kernels in stream
   order.
 - ``DistMesh``: this process's rank of a ``torch.distributed`` world of
-  ``layout.size`` ranks, one subgroup per group of every axis subset.
+  ``layout.size`` ranks, one subgroup per group of every axis subset, on
+  the current CUDA device unless ``device`` is given (a gloo world on
+  the CPU passes ``"cpu"``).
 - ``CountingMesh``: rank 0 alone on the ``meta`` device (the dry run).
   Its collectives return empty tensors of the result's shape and count
   their bytes. Rank 0 stands for every rank: the sharding rules split a
@@ -91,6 +93,7 @@ import torch
 from torch.utils._python_dispatch import _disable_current_modes
 
 from ..bridge import map_tree
+from ..device import current_cuda_device, resolve_device
 from .group import _DONE, DistGroup, EPGroup, LocalGroup, inverse_round
 
 __all__ = ["CountingMesh", "DistMesh", "RankMesh", "ThreadMesh"]
@@ -300,16 +303,17 @@ class RankMesh:
 # ---------------------------------------------------------------------------
 
 class ThreadMesh:
-    """``layout.size`` ranks as threads of this process on ``device``.
+    """``layout.size`` ranks as threads of this process on ``device`` (the
+    card unless another is given).
     ``run(fn)`` calls ``fn(rank_mesh)`` on every rank at once and returns
     the results in rank order (a rank's exception is raised once every
     thread has stopped). A rank that waits ``timeout`` seconds at a
     collective for the others (a rank program whose ranks call different
     collectives) breaks it, and ``run`` raises."""
 
-    def __init__(self, layout, device="cpu", timeout: float = 600.0):
+    def __init__(self, layout, device="cuda", timeout: float = 600.0):
         self.layout = layout
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._slots = [None] * layout.size
         self._grad = [False] * layout.size
         self._results = [None] * layout.size
@@ -607,12 +611,15 @@ class DistMesh(RankMesh):
     ``layout.size`` ranks (rank r at the layout's flat index r). Every
     process must build it, in the same order: it makes one subgroup per
     group of every proper subset of the axes (``dist.new_group`` is
-    collective); the whole mesh is the default group."""
+    collective); the whole mesh is the default group. ``device``: the
+    current CUDA device when None (a gloo world runs on ``"cpu"``)."""
 
-    def __init__(self, layout, device="cpu"):
+    def __init__(self, layout, device=None):
         import torch.distributed as dist
         if not dist.is_initialized():
             raise RuntimeError("DistMesh needs an initialised process group")
+        device = (current_cuda_device() if device is None
+                  else resolve_device(device))
         if dist.get_world_size() != layout.size:
             raise ValueError(f"a {layout.size}-rank mesh under a world of "
                              f"{dist.get_world_size()}")

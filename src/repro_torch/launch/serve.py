@@ -13,6 +13,9 @@ batch or continuous batching over a Poisson stream.
       --cache-cap 32 --kernels
   python -m repro_torch.launch.serve --arch phi3.5-moe-42b-a6.6b --reduced \
       --device cpu --colocate-with phi4-mini-3.8b --kernels
+  python -m repro_torch.launch.serve --arch phi3.5-moe-42b-a6.6b --reduced \
+      --device cpu --colocate-with mamba2-1.3b --kernels --batch 2 \
+      --cache-cap 32 --arrival-rate 0.5 --prefill-chunk 4
 
   python -m repro_torch.launch.serve --arch deepseek-v3-671b --reduced \
       --device cpu --kernels --batch 3 --cache-cap 32 --num-requests 4 \
@@ -62,10 +65,14 @@ takes MoE layers first, so DeepSeek-V3's 3 leading dense layers stay
 (``configs.cut_depth``). DeepSeek-V3 (MLA) refuses ``--prefill-chunk``,
 as the reference does, and so does an encoder-decoder (SeamlessM4T),
 which serves the static batch only, on seeded frames of ``--prompt-len``
-positions (the reference's convention). The SSM, hybrid, vlm and audio
-families (mamba2, zamba2, qwen2-vl, SeamlessM4T) serve alone:
-``--colocate-with`` with one of them raises ValueError (ROADMAP A4's
-leftover), and ``--mesh`` refuses them as it does any model without
+positions (the reference's convention). ``--colocate-with`` takes any
+arch but SeamlessM4T, static or continuous: mamba2, zamba2 and qwen2-vl
+serve beside the first model with their own caches (an SSM conv window
+and state, a hybrid's shared-block KV, qwen2-vl's M-RoPE over token
+positions) and, having no experts, with no pairing, so
+``--replan-interval`` refuses beside them. SeamlessM4T raises ValueError
+there: the colocated engines pass no frames to its encoder (the reference
+fails with KeyError: 'frames'). ``--mesh`` refuses every model without
 experts.
 ``--trace-out BASE`` records telemetry and writes BASE.jsonl (spans and
 events) and BASE.trace.json (Chrome trace-event JSON, for Perfetto) on
@@ -95,8 +102,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--colocate-with", default=None,
-                    help="serve a second model beside --arch (colocated "
-                         "continuous engine, planner-chosen pairing)")
+                    help="serve a second model beside --arch (any arch "
+                         "but an encoder-decoder; planner-chosen pairing "
+                         "when both are MoE)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--n-layers", type=int, default=None,
                     help="cut the layer count (full widths are kept)")

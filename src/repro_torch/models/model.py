@@ -17,18 +17,10 @@ import dataclasses
 import torch
 
 from ..bridge import map_tree
+from ..device import resolve_device
 from . import transformer as tf
 from .layers import KernelConfig, ParallelContext
 from .moe import ReplicationSpec
-
-
-def resolve_device(device) -> torch.device:
-    """``torch.device(device)``; a CUDA device must exist."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is present: the port runs on the "
-                           "card unless device='cpu' is asked for")
-    return device
 
 
 @dataclasses.dataclass(frozen=True)

@@ -31,6 +31,7 @@ import dataclasses
 import torch
 import torch.utils.checkpoint
 
+from ..device import resolve_device
 from . import attention as attn_mod
 from . import ssm as ssm_mod
 from .layers import ffn_apply, rmsnorm
@@ -179,14 +180,16 @@ def _init_segment(seg: Segment, cfg, dtype, device, gen) -> tuple:
                  for kind in seg.kinds)
 
 
-def init_params(cfg, seed: int = 0, device="cpu") -> dict:
+def init_params(cfg, seed: int = 0, device="cuda") -> dict:
     """Seeded random params with the reference's shapes, scales and dtypes
     (``init_params``); the numbers come from a ``torch.Generator``, so they
-    differ from JAX's for the same seed. Made directly on ``device``. On
+    differ from JAX's for the same seed. Made directly on ``device`` (the
+    card unless another is given; without one it raises). On
     ``meta`` (the dry run's abstract params: shapes and dtypes, no data)
     there is no generator and ``seed`` is unused."""
+    device = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
-    gen = (None if torch.device(device).type == "meta"
+    gen = (None if device.type == "meta"
            else torch.Generator(device=device).manual_seed(seed))
     vp, d = padded_vocab(cfg), cfg.d_model
     p = {"embed": _normal((vp, d), 0.02, dtype, device, gen),
@@ -238,7 +241,7 @@ def _init_entry(kind: str, cfg, batch: int, cap: int, src_len: int, dtype,
 
 
 def init_cache(cfg, batch: int, cap: int, src_len: int = 0, dtype=None,
-               per_slot_len=False, device="cpu") -> dict:
+               per_slot_len=False, device="cuda") -> dict:
     """``{"len", "segments"}`` with leaves (count, batch, ...): GQA
     ``{"k", "v"}`` (cap_l, Hkv, D), or MLA ``{"ckv", "k_rope"}`` (cap,
     kv_lora) and (cap, rope) when ``cfg.mla`` is set; an M layer's
@@ -246,7 +249,9 @@ def init_cache(cfg, batch: int, cap: int, src_len: int = 0, dtype=None,
     ``k``/``v`` and the cross ``xk``/``xv`` of ``src_len`` positions.
     ``cap_l`` is ``entry_capacity``: ``cap``, or an L layer's ring.
     ``per_slot_len=True`` makes ``len`` a (batch,) vector: each row (decode
-    slot) tracks its own sequence length."""
+    slot) tracks its own sequence length. On the card unless ``device``
+    says otherwise."""
+    device = resolve_device(device)
     dtype = dtype or torch_dtype(cfg.dtype)
     shape_len = (batch,) if per_slot_len else ()
     segs = []

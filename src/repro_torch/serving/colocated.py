@@ -21,6 +21,21 @@ is permuted one layer slice at a time, so the transient stays at one
 (E, d, F) slab. A params tree handed to an engine is the engine's to
 re-seat.
 
+Tenants. Any family but the encoder-decoder colocates, as in the
+reference: an MoE model, a dense one, mamba2 (SSM), zamba2 (Mamba2 blocks
+and a shared attention block) and qwen2-vl (M-RoPE positions, which are
+the token positions here: the engines pass tokens only). Each tenant's
+cache is its own (KV, an SSM conv window and fp32 state, or both); the
+lockstep step freezes the rows of vacant slots and in-flight chunked
+prefills through the row masks (``Model.decode_step(row_mask=...)``), as a
+tenant's ``ContinuousEngine`` does alone. A tenant without experts gets no
+pairing: the dual-model pairing defaults to the identity over tenant B's
+experts (empty when B has none), the N-tenant groups to the identity over
+tenant 0's, and re-planning refuses. SeamlessM4T is refused
+(``engine.refuse_encoder_decoder``; the continuous engines through their
+``ContinuousEngine`` pools): its encoder needs frames, which the engines
+do not pass.
+
 The lockstep decode is a step callable like the pools' own: it passes
 through ``EngineConfig.step_wrapper`` and, with a telemetry hub, becomes a
 ``lockstep_decode`` span inside a ``lockstep_step`` span; adoptions are
@@ -34,12 +49,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..configs import refuse_solo_family
 from ..core.errors import PlanError
 from ..models import Model
 from ..models.moe import expert_leaves, expert_slabs
 from .config import EngineConfig, TenantSpec, scale_admission
-from .engine import wrap_step_callable
+from .engine import refuse_encoder_decoder, wrap_step_callable
 from .telemetry import record_adoption
 
 __all__ = ["ColocatedContinuousEngine", "ColocatedEngine",
@@ -197,16 +211,20 @@ def _row_masks(pools):
 
 def _require_replannable(models, what: str):
     """Re-planning pairs experts across tenants layer by layer: every model
-    needs MoE layers, one expert count and one MoE layer count."""
+    needs MoE layers, one expert count and one MoE layer count. A dense,
+    SSM, hybrid or vlm tenant has no experts to pair, so it is refused
+    with the reference's message (``what``: "re-planning" for the
+    dual-model engine, "re-grouping" for the N-tenant one)."""
     cfgs = [m.cfg for m in models]
     if (any(c.moe is None for c in cfgs)
             or len({c.moe.n_experts for c in cfgs}) != 1):
-        raise ValueError(f"online {what} needs MoE models with equal "
-                         "expert counts (the pairing is expert<->expert)")
+        who, unit = (("two MoE models", "pairing") if what == "re-planning"
+                     else ("MoE tenants", "grouping"))
+        raise ValueError(f"online {what} needs {who} with equal expert "
+                         f"counts (the {unit} is expert<->expert)")
     if len({m.n_moe_layers for m in models}) != 1:
         raise ValueError(f"online {what} needs equal MoE layer counts "
-                         "(the planner simulates the traces layer by "
-                         "layer)")
+                         "(the planner simulates the traces layer-by-layer)")
 
 
 @dataclasses.dataclass
@@ -221,7 +239,7 @@ class ColocatedEngine:
 
     def __post_init__(self):
         for m in (self.model_a, self.model_b):
-            refuse_solo_family(m.cfg)
+            refuse_encoder_decoder(m, "ColocatedEngine")
 
     def serve(self, prompts_a, prompts_b, max_new_tokens: int,
               cache_cap: int):
@@ -272,8 +290,6 @@ class ColocatedContinuousEngine:
         from .engine import ContinuousEngine
         from .monitor import TrafficMonitor
 
-        for m in (model_a, model_b):
-            refuse_solo_family(m.cfg)
         config = config if config is not None else EngineConfig()
         self.config = config
         # Kernelize once, before the pools and the lockstep step exist.
@@ -478,8 +494,6 @@ class MultiTenantContinuousEngine:
                              "(use ContinuousEngine for one)")
         if len(params) != len(models):
             raise ValueError("one params tree per model required")
-        for m in models:
-            refuse_solo_family(m.cfg)
         models = [config.kernelize(m) for m in models]
         self.models = list(models)
         self.n_tenants = len(models)
@@ -636,11 +650,15 @@ class MultiTenantContinuousEngine:
                                      name=f"{cfg.arch_id}#{t}",
                                      halflife=self.monitor_halflife)
             monitor.slot_to_expert = list(pair)
+        # The pool first: a tenant it refuses (an encoder-decoder) leaves
+        # the engine as it was.
+        pool = ContinuousEngine(
+            model, params, self.batch_slots, self.cache_cap,
+            config=_pool_config_for(self.config, spec), monitor=monitor)
+        if monitor is not None:
             self.monitors.append(monitor)
         self.models.append(model)
-        self.pools.append(ContinuousEngine(
-            model, params, self.batch_slots, self.cache_cap,
-            config=_pool_config_for(self.config, spec), monitor=monitor))
+        self.pools.append(pool)
         self.tenant_specs.append(spec)
         self.groups = [grp + (pair[g],) for g, grp in enumerate(self.groups)]
         self.n_tenants += 1

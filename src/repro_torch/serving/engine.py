@@ -83,7 +83,7 @@ from .events import RingBuffer
 from .telemetry import STEP_BOUNDS, record_adoption, tree_leaves
 
 __all__ = ["Request", "poisson_requests", "serve_stream", "ServingEngine",
-           "ContinuousEngine", "wrap_step_callable"]
+           "ContinuousEngine", "refuse_encoder_decoder", "wrap_step_callable"]
 
 
 @dataclasses.dataclass
@@ -113,6 +113,16 @@ def poisson_requests(rng, n: int, rate: float, vocab: int, prompt_len: int,
             max_new_tokens=int(rng.integers(max_new_lo, max_new_hi + 1)),
             arrival=t))
     return reqs
+
+
+def refuse_encoder_decoder(model: Model, engine: str) -> None:
+    """Raise ValueError for an encoder-decoder: the continuous and
+    colocated engines pass tokens only, and its encoder needs frames (the
+    reference's engines pass none and fail with KeyError: 'frames')."""
+    if model.cfg.is_encoder_decoder:
+        raise ValueError(f"{model.cfg.arch_id} is an encoder-decoder: "
+                         f"{engine} takes no frames; serve it with "
+                         "ServingEngine(...).serve(reqs, frames)")
 
 
 def wrap_step_callable(fn, name: str, config: EngineConfig,
@@ -232,13 +242,7 @@ class ContinuousEngine:
     def __init__(self, model: Model, params, batch_slots: int,
                  cache_cap: int, config: EngineConfig | None = None,
                  monitor=None):
-        # The reference's continuous engine passes no frames, so its
-        # prefill has no encoder output for an encoder-decoder's
-        # cross-attention; this one refuses such a model.
-        if model.cfg.is_encoder_decoder:
-            raise ValueError(f"{model.cfg.arch_id} is an encoder-decoder: "
-                             "ContinuousEngine takes no frames; serve it "
-                             "with ServingEngine(...).serve(reqs, frames)")
+        refuse_encoder_decoder(model, "ContinuousEngine")
         config = config if config is not None else EngineConfig()
         self.config = config
         model = config.kernelize(model)

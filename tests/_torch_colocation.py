@@ -1,7 +1,9 @@
 """Shared setup of the port's colocation tests (``test_torch_colocated``,
-``test_torch_multi_tenant``): each package's engines, models and params
-behind one namespace, seeded request streams and exact comparisons."""
+``test_torch_multi_tenant``, ``test_torch_colocated_families*``): each
+package's engines, models and params behind one namespace, seeded request
+streams and exact comparisons."""
 
+import functools
 import types
 
 import jax
@@ -100,5 +102,54 @@ def colocated_run(s, weights, chunked, replan):
         config=s.m.EngineConfig(kernels=True,
                                 prefill_chunk=4 if chunked else None),
         pair=PAIR0, replan=forced(s) if replan else None)
+    ra, rb = eng.serve(reqs(s.m, 1), reqs(s.m, 2))
+    return eng, [streams(ra), streams(rb)]
+
+
+# -- the ssm, hybrid and vlm families beside phi3.5-MoE ----------------------
+
+FAMILIES = ["mamba2-1.3b", "zamba2-7b", "qwen2-vl-7b"]
+SSM, HYBRID, VLM = FAMILIES
+AUDIO = "seamless-m4t-large-v2"
+DENSE = "phi4-mini-3.8b"
+
+
+@functools.lru_cache(maxsize=None)
+def arch_weights(arch, seed):
+    """JAX params of the reduced ``arch`` as numpy leaves, made once
+    (jitted: the eager init of the SSM families takes seconds)."""
+    cfg = jax_get_config(arch).reduced()
+    return jax.tree.map(np.asarray, jax.jit(JaxModel(cfg).init)(
+        jax.random.PRNGKey(seed)))
+
+
+def tenant(s, arch, seed):
+    """(model, params) of the reduced ``arch`` on side ``s`` (``JAX`` or
+    ``PORT``), with the weights of ``seed``; fresh tensors on the port."""
+    w = arch_weights(arch, seed)
+    if s is JAX:
+        return (JaxModel(jax_get_config(arch).reduced()),
+                jax.tree.map(jnp.asarray, w))
+    return (Model(get_config(arch).reduced(), device="cpu"),
+            bridge.to_torch(w))
+
+
+ADMISSION = {"one_shot": {}, "chunk4": {"prefill_chunk": 4},
+             "pool2": {"prefill_chunk": 4, "prefill_pool": 2}}
+
+
+def family_config(s, admission):
+    """The kernel path with one of ``ADMISSION``'s admissions."""
+    return s.m.EngineConfig(kernels=True, **ADMISSION[admission])
+
+
+def family_run(s, arch, admission):
+    """phi3.5-MoE (seed 0) and ``arch`` (seed 1) in a
+    ``ColocatedContinuousEngine`` (2 slots, cache 32) serving ``reqs``
+    streams of seeds 1 and 2. Returns the engine and both streams."""
+    (ma, pa), (mb, pb) = tenant(s, ARCH, 0), tenant(s, arch, 1)
+    eng = s.m.ColocatedContinuousEngine(ma, mb, pa, pb, batch_slots=2,
+                                        cache_cap=32,
+                                        config=family_config(s, admission))
     ra, rb = eng.serve(reqs(s.m, 1), reqs(s.m, 2))
     return eng, [streams(ra), streams(rb)]

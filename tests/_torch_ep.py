@@ -82,7 +82,7 @@ def exchange_worker(bufs, variants):
     variant (None: the monolithic all-to-all)."""
     import torch
     from repro_torch.distributed import DistGroup, ep_all_to_all
-    group = DistGroup()
+    group = DistGroup(device="cpu")
     mine = torch.from_numpy(bufs[group.rank])
     return {name: ep_all_to_all([mine], group, rounds)[0].numpy()
             for name, rounds in variants.items()}
@@ -97,7 +97,7 @@ def layer_worker(cases):
     from repro_torch.distributed import DistGroup, ep_dispatch_combine
     from repro_torch.models import KernelConfig, ParallelContext
     from repro_torch.models.moe import ReplicationSpec
-    group = DistGroup()
+    group = DistGroup(device="cpu")
     out = {}
     for name, (inp, pc_kw, kernels, counts) in cases.items():
         moe = MoEConfig(n_experts=inp["router"].shape[1], top_k=2,
@@ -126,7 +126,8 @@ def engine_worker(cfg, weights, prompts, new, moe_impl, overlap):
     from repro_torch.serving import DistributedEngine, EngineConfig, Request
     eng = DistributedEngine(
         Model(cfg, device="cpu"), bridge.to_torch(weights), batch_slots=2,
-        cache_cap=32, group=DistGroup(), moe_impl=moe_impl, overlap=overlap,
+        cache_cap=32, group=DistGroup(device="cpu"), moe_impl=moe_impl,
+        overlap=overlap,
         config=EngineConfig(prefill_len=8, kernels=True))
     reqs = [Request(prompt=list(p), max_new_tokens=new, arrival=float(i // 2))
             for i, p in enumerate(prompts)]

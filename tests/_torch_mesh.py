@@ -136,7 +136,7 @@ def _serve_body(shape, axes, cfg, params_np, inputs, steps):
     from repro_torch.distributed import DistMesh
     from repro_torch.launch.mesh import MeshLayout
     return rank_body(cfg, params_np, inputs, steps,
-                     DistMesh(MeshLayout(shape, axes)))
+                     DistMesh(MeshLayout(shape, axes), "cpu"))
 
 
 def gloo_run(tmp, world: int, body, args) -> list:
@@ -172,7 +172,7 @@ def gloo_train_body(shape, axes, cfg, params_np, batch_np, layer, ck):
     from repro_torch.launch.mesh import MeshLayout
     from repro_torch.sharding import param_specs
     from repro_torch.training import save_checkpoint
-    rm = DistMesh(MeshLayout(shape, axes))
+    rm = DistMesh(MeshLayout(shape, axes), "cpu")
     out = {}
     for impl in ("ep", "aurora"):
         rm.collective_bytes = 0
@@ -180,6 +180,7 @@ def gloo_train_body(shape, axes, cfg, params_np, batch_np, layer, ck):
     specs = param_specs(cfg, rm)
     save_checkpoint(ck, shard_params(to_torch(params_np), specs, rm,
                                      rm.rank), step=0, shardings=(specs, rm))
-    out["layer"] = {impl: ep_layer_grads(cfg, *layer, DistGroup(), impl)
+    out["layer"] = {impl: ep_layer_grads(cfg, *layer,
+                                         DistGroup(device="cpu"), impl)
                     for impl in ("ep", "aurora")}
     return out

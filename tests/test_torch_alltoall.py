@@ -157,7 +157,7 @@ def test_exchange_on_local_group_matches_jax(exchange):
     (out[s] = what rank s sent), and the rounds count one copy per pair."""
     bufs, variants, want = exchange
     for name, rounds in variants.items():
-        group = LocalGroup(N_RANKS)
+        group = LocalGroup(N_RANKS, "cpu")
         got = tall.ep_all_to_all([torch.from_numpy(b) for b in bufs], group,
                                  rounds)
         np.testing.assert_array_equal(np.stack([g.numpy() for g in got]),

@@ -93,6 +93,16 @@ def test_launch_colocated_replan_on_cpu(capsys):
     with pytest.raises(KeyError):
         serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
                     "--colocate-with", "mamba3-unknown"])
-    with pytest.raises(ValueError, match="ROADMAP A4"):
+    # An SSM tenant colocates (no pairing: it has no experts); the
+    # encoder-decoder does not, as its engines pass no frames.
+    assert serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
+                       "--colocate-with", "mamba2-1.3b", "--kernels",
+                       "--num-requests", "2", "--batch", "2",
+                       "--cache-cap", "32", "--max-new-tokens", "3",
+                       "--arrival-rate", "0.5"]) == 0
+    out = capsys.readouterr().out
+    assert "lockstep decode steps" in out
+    assert "aurora colocation pairing" not in out
+    with pytest.raises(ValueError, match="no frames"):
         serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
-                    "--colocate-with", "mamba2-1.3b"])
+                    "--colocate-with", "seamless-m4t-large-v2"])

@@ -86,7 +86,7 @@ def test_init_params_tree_matches_jax(weights):
     """The port's seeded init has exactly the JAX tree's leaf paths, shapes
     and dtypes: the MLA leaves, the D layer's ``ffn`` at ``dense_d_ff``,
     the E layer's ``moe.shared`` at ``shared_d_ff``, the fp32 router."""
-    ours = init_params(CFG, seed=0)
+    ours = init_params(CFG, seed=0, device="cpu")
     paths = bridge.leaf_paths(weights)
     assert sorted(map(str, bridge.leaf_paths(ours))) == sorted(map(str, paths))
     for path in paths:
@@ -263,7 +263,7 @@ def test_distributed_engine_matches_jax_engine(weights, impl):
     want = _streams(ref.serve(reqs(jserving)))
     eng = tserving.DistributedEngine(
         Model(CFG_EP, device="cpu"), bridge.to_torch(weights), batch_slots=2,
-        cache_cap=32, group=LocalGroup(4), moe_impl=impl,
+        cache_cap=32, group=LocalGroup(4, "cpu"), moe_impl=impl,
         config=tserving.EngineConfig(kernels=True))
     assert eng.n_ep == 4 and eng.model.pc.moe_impl == impl
     assert _streams(eng.serve(reqs(tserving))) == want

@@ -107,10 +107,10 @@ def test_init_params_and_cache_shapes_match_jax(arch):
     cfg_j = jax_get_config(arch).reduced()
     cfg = get_config(arch).reduced()
     for ours, ref in (
-            (init_params(cfg, seed=0),
+            (init_params(cfg, seed=0, device="cpu"),
              jax.eval_shape(lambda: JaxModel(cfg_j).init(
                  jax.random.PRNGKey(0)))),
-            (tt.init_cache(cfg, 3, 40, per_slot_len=True),
+            (tt.init_cache(cfg, 3, 40, per_slot_len=True, device="cpu"),
              jax.eval_shape(lambda: jt.init_cache(cfg_j, 3, 40,
                                                   per_slot_len=True)))):
         paths = bridge.leaf_paths(ours)
@@ -123,7 +123,7 @@ def test_init_params_and_cache_shapes_match_jax(arch):
             assert tuple(a.shape) == tuple(b.shape), path
             assert str(a.dtype) == str(b.dtype).replace("torch.", ""), path
     if arch == "gemma3-27b":
-        ring, glob = tt.init_cache(cfg, 3, 40)["segments"][0]
+        ring, glob = tt.init_cache(cfg, 3, 40, device="cpu")["segments"][0]
         assert ring["k"].shape[2] == 16 and glob["k"].shape[2] == 40
 
 

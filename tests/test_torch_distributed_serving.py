@@ -96,7 +96,7 @@ def _engine(weights, impl="aurora", overlap=False, kernels=True, **kw):
                                    **kw.pop("config", {}))
     return tserving.DistributedEngine(
         Model(CFG, device="cpu"), bridge.to_torch(weights[0]),
-        batch_slots=2, cache_cap=32, group=LocalGroup(N_RANKS),
+        batch_slots=2, cache_cap=32, group=LocalGroup(N_RANKS, "cpu"),
         moe_impl=impl, overlap=overlap, config=config, **kw)
 
 
@@ -217,7 +217,7 @@ def test_colocated_replan_refreshes_rounds(weights):
         if distributed:
             eng = tserving.DistributedColocatedEngine(
                 model, model, bridge.to_torch(weights[0]), params_b,
-                group=LocalGroup(N_RANKS), plan=plan0, overlap=True,
+                group=LocalGroup(N_RANKS, "cpu"), plan=plan0, overlap=True,
                 refresh_rounds=refresh, **kw)
         else:
             eng = tserving.ColocatedContinuousEngine(
@@ -253,7 +253,7 @@ def test_multi_tenant_regroup_refreshes_rounds(weights):
         eng = tserving.DistributedMultiTenantEngine(
             [Model(CFG, device="cpu")] * 3,
             [bridge.to_torch(w) for w in weights], batch_slots=2,
-            cache_cap=32, group=LocalGroup(N_RANKS), moe_impl="aurora",
+            cache_cap=32, group=LocalGroup(N_RANKS, "cpu"), moe_impl="aurora",
             refresh_rounds=refresh,
             config=tserving.EngineConfig(prefill_len=8, kernels=True),
             replan=tserving.OnlineReplanner(planner, interval=3,
@@ -276,10 +276,11 @@ def test_distribution_errors(weights):
     literal rounds handed to ``adopt``."""
     model = Model(CFG, device="cpu")
     with pytest.raises(ValueError, match="do not shard"):
-        tserving.distribute(model, LocalGroup(3))
+        tserving.distribute(model, LocalGroup(3, "cpu"))
     with pytest.raises(ValueError, match="no MoE"):
         tserving.distribute(dataclasses.replace(
-            model, cfg=dataclasses.replace(CFG, moe=None)), LocalGroup(4))
+            model, cfg=dataclasses.replace(CFG, moe=None)),
+            LocalGroup(4, "cpu"))
     eng = _engine(weights, impl="ep")
     with pytest.raises(ValueError, match="'aurora' dispatch path"):
         eng.swap_rounds(round_robin_rounds(N_RANKS))
@@ -289,7 +290,7 @@ def test_distribution_errors(weights):
     with pytest.raises(TypeError, match="swap_rounds"):
         eng.adopt(round_robin_rounds(N_RANKS))
     from repro_torch.sharding import make_pc
-    assert make_pc(CFG, LocalGroup(3)).moe_impl == "dense"
+    assert make_pc(CFG, LocalGroup(3, "cpu")).moe_impl == "dense"
 
 
 def test_engine_on_gloo_ranks_equals_local_group(weights, want, tmp_path):

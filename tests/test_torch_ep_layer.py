@@ -169,7 +169,7 @@ def test_layer_on_local_group_matches_jax(jax_out, name, kernels):
     """Every path of the port's layer on ``LocalGroup(4)`` against the JAX
     EP layer; the overlap bit-equal to the synchronous body."""
     inp, _, _, counts = CASES[name]
-    outs = {path: _port(inp, LocalGroup(N_RANKS), kw, kernels, counts)
+    outs = {path: _port(inp, LocalGroup(N_RANKS, "cpu"), kw, kernels, counts)
             for path, kw in _paths(name).items()}
     for got in outs.values():
         _check(got, jax_out, name)
@@ -208,7 +208,7 @@ def test_pipeline_wrapper_and_errors():
     args = (torch.from_numpy(inp["x"]), torch.from_numpy(inp["router"]),
             {k: torch.from_numpy(inp[k])
              for k in ("w_gate", "w_up", "w_down")}, moe, "swiglu")
-    group = LocalGroup(N_RANKS)
+    group = LocalGroup(N_RANKS, "cpu")
     pc = ParallelContext(group=group, moe_impl="ep")
     y_w, _ = pipelined_dispatch_combine(*args, pc)
     y_o, _ = ep_dispatch_combine(*args, ParallelContext(

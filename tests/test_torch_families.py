@@ -155,10 +155,11 @@ def test_param_and_cache_trees_match_jax(arch):
     cfg = get_config(arch).reduced()
     src = 6 if cfg.is_encoder_decoder else 0
     for ours, ref in (
-            (init_params(cfg, seed=0),
+            (init_params(cfg, seed=0, device="cpu"),
              jax.eval_shape(lambda: JaxModel(cfg_j).init(
                  jax.random.PRNGKey(0)))),
-            (tt.init_cache(cfg, 3, 40, src_len=src, per_slot_len=True),
+            (tt.init_cache(cfg, 3, 40, src_len=src, per_slot_len=True,
+                           device="cpu"),
              jax.eval_shape(lambda: jt.init_cache(
                  cfg_j, 3, 40, src_len=src, per_slot_len=True)))):
         paths = bridge.leaf_paths(ours)
@@ -171,7 +172,7 @@ def test_param_and_cache_trees_match_jax(arch):
             assert tuple(b.shape) == tuple(a.shape), path
             assert str(b.dtype).split(".")[-1] == str(a.dtype), path
     if arch == HYBRID:
-        assert init_params(cfg)["segments"][0][2] == {}
+        assert init_params(cfg, device="cpu")["segments"][0][2] == {}
 
 
 def _prefill_inputs(arch, cfg, rng, b, s):
@@ -425,15 +426,19 @@ def test_launch_new_families_on_cpu(capsys):
 
 
 def test_new_families_serve_alone():
-    """Colocating a new family raises ValueError naming ROADMAP A4; expert
-    parallelism and replication refuse it as any model without experts."""
+    """Only the encoder-decoder serves alone: colocating SeamlessM4T raises
+    ValueError (the engines pass no frames), while mamba2 colocates
+    (``test_torch_colocated_families*.py`` serve it). Expert parallelism
+    and replication refuse mamba2 as any model without experts."""
     from repro_torch.distributed.group import LocalGroup
     from repro_torch.serving.distributed import distribute
     mt, pt = _port(SSM)
-    with pytest.raises(ValueError, match="ROADMAP A4"):
-        tserving.ColocatedEngine(mt, mt, pt, pt)
+    tserving.ColocatedEngine(mt, mt, pt, pt)
+    ma, pa = _port(AUDIO)
+    with pytest.raises(ValueError, match="no frames"):
+        tserving.ColocatedEngine(mt, ma, pt, pa)
     with pytest.raises(ValueError, match="no MoE layers"):
-        distribute(mt, LocalGroup(2))
+        distribute(mt, LocalGroup(2, "cpu"))
     eng = tserving.ContinuousEngine(mt, pt, batch_slots=2, cache_cap=16)
     with pytest.raises(ValueError, match="no experts"):
         eng.adopt_replication([2, 1])

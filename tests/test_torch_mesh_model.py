@@ -122,7 +122,7 @@ def _thread_run(arch, shape, kernels=False):
     cfg = get_config(arch).reduced()
     params, inputs, _, _ = _reference(arch)
     layout = MeshLayout(shape, ("data", "model"))
-    res = ThreadMesh(layout).run(
+    res = ThreadMesh(layout, "cpu").run(
         lambda rm: rank_body(cfg, params, inputs, _steps(arch), rm,
                              kernels))
     logits = assemble(layout, cfg, [r[0] for r in res], B)
@@ -186,7 +186,7 @@ def test_gloo_ranks_match_the_thread_transport(tmp_path):
     layout = MeshLayout((2, 2), ("data", "model"))
     steps = 2                    # process start and rendezvous dominate
     got = gloo_mesh_run(str(tmp_path), layout, cfg, params, inputs, steps)
-    want = ThreadMesh(layout).run(
+    want = ThreadMesh(layout, "cpu").run(
         lambda rm: rank_body(cfg, params, inputs, steps, rm))
     for (g_logits, g_stream, g_bytes), (w_logits, w_stream, w_bytes) in zip(
             got, want):
@@ -301,7 +301,7 @@ def test_meta_trace_equals_the_thread_rank_0(arch):
                 return None
             return dryrun.trace_step(fn, a), rm.collective_bytes
 
-        got, coll = ThreadMesh(layout).run(body)[0]
+        got, coll = ThreadMesh(layout, "cpu").run(body)[0]
         assert (got["flops"], got["temp_bytes"], got["output_bytes"],
                 coll) == (want["flops"], want["temp_bytes"],
                           want["output_bytes"], want_coll), shape.name
@@ -367,7 +367,7 @@ def test_train_and_deferred_pairs_keep_exact_arguments():
                                         {"tokens": tokens})
         return rm.collective_bytes
 
-    assert ThreadMesh(small).run(body)[0] == rm0.collective_bytes > 0
+    assert ThreadMesh(small, "cpu").run(body)[0] == rm0.collective_bytes > 0
     layout = MeshLayout((1, 4), ("data", "model"))
     for arch in ("mamba2-1.3b", "zamba2-7b", "seamless-m4t-large-v2"):
         cfg = get_config(arch).reduced()
@@ -375,7 +375,7 @@ def test_train_and_deferred_pairs_keep_exact_arguments():
         def build(rm, cfg=cfg):
             return Model(cfg, device="cpu", pc=make_pc(
                 cfg, rm, batch=4, cap=16)).pc.tp
-        assert ThreadMesh(layout).run(build) == [4] * 4
+        assert ThreadMesh(layout, "cpu").run(build) == [4] * 4
         rec, = dryrun.run_mesh_pair(
             cfg, InputShape("t_decode", 16, 4, "decode"), (False,))
         assert rec["cost"]["collective_bytes"] is not None

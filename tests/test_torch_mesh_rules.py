@@ -177,9 +177,9 @@ def test_ep_only_forms_unchanged():
     specs = tree_leaves(param_specs(cfg, 4))
     assert set(specs) == {None, -3}
     assert tree_leaves(param_specs(cfg, 3)) == [None] * len(specs)
-    pc = make_pc(cfg, LocalGroup(4))
+    pc = make_pc(cfg, LocalGroup(4, "cpu"))
     assert pc.moe_impl == "ep" and pc.mesh is None and pc.tp == 1
-    assert make_pc(cfg, LocalGroup(3)).moe_impl == "dense"
+    assert make_pc(cfg, LocalGroup(3, "cpu")).moe_impl == "dense"
     with pytest.raises(ValueError, match="batch"):
         make_pc(cfg, make_test_mesh())
 
@@ -221,7 +221,7 @@ def test_thread_transport_collectives_and_counts_under_contention():
 
     sys.setswitchinterval(1e-6)
     try:
-        res = ThreadMesh(layout, timeout=60).run(body)
+        res = ThreadMesh(layout, "cpu", timeout=60).run(body)
     finally:
         sys.setswitchinterval(old)
     assert fn.launches == 16 * ROUNDS * 100
@@ -252,7 +252,7 @@ def test_thread_transport_collectives_and_counts_under_contention():
         rm.all_reduce(torch.ones(1), "model")
 
     t = threading.Thread(target=lambda: pytest.raises(
-        RuntimeError, ThreadMesh(layout, timeout=30).run, stray))
+        RuntimeError, ThreadMesh(layout, "cpu", timeout=30).run, stray))
     t.start()
     t.join(timeout=60)
     assert not t.is_alive()

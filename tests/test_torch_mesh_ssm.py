@@ -160,7 +160,7 @@ def test_mamba_rank_program_matches_jax_and_the_unsharded_port(case):
         return _steps(cfg, ps, xt, cs, pc=make_pc(cfg, rm, batch=B,
                                                   cap=CAP))
 
-    res = ThreadMesh(LAYOUT).run(body)
+    res = ThreadMesh(LAYOUT, "cpu").run(body)
     for i in range(3):
         for outs, _ in res:
             np.testing.assert_allclose(outs[i].numpy(), want_outs[i],
@@ -197,4 +197,4 @@ def test_an_m_layer_moves_its_named_collective_bytes():
                           pc=make_pc(cfg, rm, batch=B, cap=CAP))
         return rm.collective_bytes
 
-    assert ThreadMesh(LAYOUT).run(body) == [want] * 4
+    assert ThreadMesh(LAYOUT, "cpu").run(body) == [want] * 4

@@ -188,7 +188,7 @@ def _sharded_grads(arch, shape, impl="ep"):
                                              params, batch, rm, pspecs)
         return float(loss), grads
 
-    res = ThreadMesh(layout).run(body)
+    res = ThreadMesh(layout, "cpu").run(body)
     grads = bridge.unshard_params([g for _, g in res],
                                   param_specs(_cfgs(arch)[0], layout),
                                   layout)
@@ -245,7 +245,7 @@ def _sharded_step():
                               batch)
         return params, opt["m"], opt["v"]
 
-    res = ThreadMesh(layout).run(body)
+    res = ThreadMesh(layout, "cpu").run(body)
     pspecs = param_specs(_cfgs(MOE)[0], layout)
     return [bridge.unshard_params([r[i] for r in res], pspecs, layout)
             for i in range(3)]
@@ -322,7 +322,7 @@ def test_sharded_checkpoint_round_trip(tmp_path):
             bridge.tree_leaves(state), bridge.tree_leaves(back)))
         return state, same, like
 
-    res = ThreadMesh(layout).run(body)
+    res = ThreadMesh(layout, "cpu").run(body)
     assert all(same for _, same, _ in res)
     pspecs = param_specs(_cfgs(MOE)[0], layout)
     sspecs = {"params": pspecs, "opt": {"m": pspecs, "v": pspecs,

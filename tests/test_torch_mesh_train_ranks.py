@@ -107,7 +107,7 @@ def test_gloo_ranks_train_as_the_thread_ranks(tmp_path):
                      layer, ck))
     specs = param_specs(cfg, LAYOUT)
     for impl in IMPLS:
-        thread = ThreadMesh(LAYOUT).run(
+        thread = ThreadMesh(LAYOUT, "cpu").run(
             lambda rm, impl=impl: train_rank_body(cfg, params, batch, rm,
                                                   impl))
         got = [r[impl] for r in gloo]
@@ -121,7 +121,7 @@ def test_gloo_ranks_train_as_the_thread_ranks(tmp_path):
                         bridge.tree_leaves(whole[1])):
             np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
                                        atol=1e-6)
-        want = ep_layer_grads(cfg, *layer, LocalGroup(4), impl)
+        want = ep_layer_grads(cfg, *layer, LocalGroup(4, "cpu"), impl)
         summed = [sum(parts) for parts in
                   zip(*(r["layer"][impl] for r in gloo))]
         for a, b in zip(summed, want):       # sums in another order
@@ -162,7 +162,7 @@ def test_train_loop_on_a_mesh_matches_the_unsharded_loop():
         return training.train_loop(model, data(), steps=3, opt_cfg=opt,
                                    log_every=1, params=params)
 
-    res = ThreadMesh(layout).run(body)
+    res = ThreadMesh(layout, "cpu").run(body)
     for mesh_state, got in res:
         assert mesh_state.step == 3 and int(mesh_state.opt["step"]) == 3
         for g, w in zip(got, want):
@@ -197,7 +197,7 @@ def test_local_group_exchange_grads_equal_the_dense_layer(impl):
                                                p["experts"].items()}}
     xt = torch.randn(30, cfg.d_model)
     w = torch.randn(30, cfg.d_model)
-    pc = ParallelContext(group=LocalGroup(4), moe_impl=impl)
+    pc = ParallelContext(group=LocalGroup(4, "cpu"), moe_impl=impl)
 
     def grads(fn):
         leaves = [xt, p["router"], *p["experts"].values()]
@@ -236,7 +236,7 @@ def test_pipelined_dispatch_refuses_grads():
                                    rm, pspecs)
 
     with pytest.raises(RuntimeError, match="no backward"):
-        ThreadMesh(layout, timeout=20).run(body)
+        ThreadMesh(layout, "cpu", timeout=20).run(body)
 
 
 @pytest.mark.parametrize("shape", MESHES)

@@ -145,7 +145,7 @@ def test_init_params_shapes_match_jax(setup):
     dtypes (the router is fp32 even in a bf16 model)."""
     _, params_j, _ = setup
     ref = jax.tree.map(np.asarray, params_j)
-    ours = init_params(get_config(ARCH).reduced(), seed=0)
+    ours = init_params(get_config(ARCH).reduced(), seed=0, device="cpu")
     assert (sorted(map(str, bridge.leaf_paths(ours)))
             == sorted(map(str, bridge.leaf_paths(ref))))
     for path in bridge.leaf_paths(ref):
@@ -156,10 +156,11 @@ def test_init_params_shapes_match_jax(setup):
         assert str(a.dtype) == str(b.dtype).replace("torch.", ""), path
     import dataclasses
     bf = dataclasses.replace(get_config(ARCH).reduced(), dtype="bfloat16")
-    p = init_params(bf, seed=0)
+    p = init_params(bf, seed=0, device="cpu")
     assert p["segments"][0][0]["moe"]["router"].dtype == torch.float32
     assert p["segments"][0][0]["attn"]["wq"].dtype == torch.bfloat16
-    torch.testing.assert_close(p["embed"], init_params(bf, seed=0)["embed"])
+    torch.testing.assert_close(
+        p["embed"], init_params(bf, seed=0, device="cpu")["embed"])
 
 
 def test_model_logits_match_jax_kernel_model(setup):

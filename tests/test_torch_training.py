@@ -249,7 +249,7 @@ def test_train_logits_refuses_kernels_expert_parallel_and_replicas():
     batch = _torch_batch(_batch(cfg, MOE))
     with pytest.raises(ValueError, match="no backward"):
         Model(cfg, device="cpu").with_kernels().train_logits(params, batch)
-    pc = ParallelContext(group=LocalGroup(2), moe_impl="ep")
+    pc = ParallelContext(group=LocalGroup(2, "cpu"), moe_impl="ep")
     with pytest.raises(ValueError, match="expert-parallel"):
         Model(cfg, device="cpu", pc=pc).train_logits(params, batch)
     spec = ReplicationSpec.from_counts([2] + [1] * (cfg.moe.n_experts - 1))
