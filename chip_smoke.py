@@ -273,8 +273,20 @@ non-zero:
    rank 0 on ``meta`` to the byte; printed: step ms and their median, a
    profile of one step (device kernels a step), the card's peak beside 4
    x the dry run's per-device total. (d) Neither kernel's launch counter
-   moves. Alone: ``python3 -c "import sys; sys.path.insert(0, 'src');
+   moves. (e) (b)'s model and batch under Aurora's rounds: one step
+   through the round-pipelined EP body (``ep_overlap``) against the same
+   step through the synchronous one, at (a)'s tolerance; printed: both
+   runs' step ms. (f) The same for the reduced MoE archs. Alone:
+   ``python3 -c "import sys; sys.path.insert(0, 'src');
    import chip_smoke as c; c.phase_device(); c.phase_train_mesh()"``.
+21. legacy_and_examples, after serve_ep (phi3.5 still loaded): the serve
+   phase's model in a ``ContinuousEngine`` built with the reference's
+   legacy keywords (``prefill_chunk=64, kernels=True``) warns once and
+   emits the greedy streams of the ``EngineConfig``-built engine (its
+   launches join the kernel rows'); then each ``examples/torch/*.py``
+   ``main`` on the card at reduced flags (``train_moe`` 20 steps, first
+   and last ce printed; their output in
+   ``chiprun_out/examples_stdout.txt``), with nothing of JAX imported.
 
 Phase 4 also serves the four reduced dense archs (phi4-mini, gemma-7b,
 qwen3-32b, gemma3-27b with its LG layers and a ring of 16; fp32) through
@@ -300,7 +312,9 @@ and (4, 2, 4096) in bf16.
 
 The parity phase also holds ``moe_gmm`` at replicated group sizes and with
 NaN-poisoned experts (NaN exactly in a live poisoned group's live rows,
-zeros elsewhere in it and in a dead poisoned group). Then a ``{"kernels":
+zeros elsewhere in it and in a dead poisoned group), and gates that each
+kernel's wrapper refuses a CUDA input that needs a grad (neither kernel
+has a backward) before it launches. Then a ``{"kernels":
 [...]}`` line (``moe_gmm`` at phi3.5's decode bucket and at DeepSeek-V3's,
 ``decode_attn`` at phi3.5's shape, at each dense arch's and at zamba2's,
 qwen2-vl's and SeamlessM4T's) and, last,
@@ -538,7 +552,39 @@ def phase_parity():
                 f"decode_attn {[b, h, hkv, d, s]} {dtype}: max abs err {ab}")
         if dtype == torch.bfloat16:
             results["decode_attn"] = max(results["decode_attn"], ab)
+    _grad_refusal(torch, gen)
     return results
+
+
+def _grad_refusal(torch, gen):
+    """Neither kernel has a backward: given a CUDA input that needs a grad
+    (grad enabled), each wrapper raises before it launches, where it
+    would otherwise return a result that silently carries no grad."""
+    from repro_torch.kernels.decode_attn import decode_attn
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    x, ws, gs = _moe_case(torch, gen, 2, 8, 64, 128, torch.bfloat16, [8, 3])
+    q = torch.randn((2, 8, 128), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    kv = torch.randn((2, 64, 2, 128), generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    valid = torch.tensor([64, 17], dtype=torch.int32, device="cuda")
+    calls = {"moe_gmm": lambda: moe_gmm(x.requires_grad_(True), *ws,
+                                        group_sizes=gs),
+             "decode_attn": lambda: decode_attn(q.requires_grad_(True), kv,
+                                                kv, valid)}
+    before = (moe_gmm.launches, decode_attn.launches)
+    refused = {}
+    for name, call in calls.items():
+        try:
+            call()
+            refused[name] = None
+        except RuntimeError as e:
+            refused[name] = str(e)
+    emit("parity", part="grad_refusal", refused=refused)
+    require(all(m is not None and "no backward: train on the plain path" in m
+                for m in refused.values())
+            and (moe_gmm.launches, decode_attn.launches) == before,
+            "parity", f"a kernel took an input that needs a grad: {refused}")
 
 
 def _nan_parity(torch, gen, moe_gmm, ref, tol):
@@ -2200,6 +2246,101 @@ def phase_serve_ep(model, params, want, solo, monitor, serve_peak_gb):
     return total
 
 
+EXAMPLES = {                     # examples/torch/<name>.py: reduced flags
+    "quickstart": [], "continuous_serving": [], "scheduled_dispatch": [],
+    "serve_colocated": [], "serve_multi_tenant": [],
+    "train_moe": ["--steps", "20"],
+}
+
+
+def phase_legacy_and_examples(model, params):
+    """The reference's legacy engine keywords and the port's six examples
+    on the card. (a) The serve phase's phi3.5 (8 layers) in a
+    ``ContinuousEngine`` built with ``prefill_chunk=64, kernels=True``
+    as keywords: exactly one ``DeprecationWarning``, and the greedy
+    streams of the ``EngineConfig``-built engine on a short stream. The
+    launch counters are set to 0 before the two runs and read after (the
+    return value, added to the kernel rows). (b) Each example's ``main``
+    from ``examples/torch`` on the card, at its reduced flags
+    (``train_moe`` 20 steps: its first and last ce are printed); what the
+    examples print goes to ``chiprun_out/examples_stdout.txt``."""
+    import importlib.util
+    import io
+    import warnings
+    import torch
+    from repro_torch.kernels.decode_attn import decode_attn
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    from repro_torch.serving import ContinuousEngine, EngineConfig
+    phase = "legacy_and_examples"
+    t_phase = time.perf_counter()
+    moe_gmm.launches = decode_attn.launches = 0
+    out = {}
+    for how in ("legacy", "config"):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if how == "legacy":
+                eng = ContinuousEngine(model, params, SLOTS, CACHE_CAP,
+                                       prefill_chunk=64, kernels=True)
+            else:
+                eng = ContinuousEngine(model, params, SLOTS, CACHE_CAP,
+                                       config=EngineConfig(
+                                           prefill_chunk=64, kernels=True))
+            reqs = _stream(model.cfg, 4, 64, 200, 8, 16, seed=5)
+            t1 = time.perf_counter()
+            eng.serve(reqs)
+            torch.cuda.synchronize()
+        out[how] = {
+            "streams": [list(map(int, r.out_tokens)) for r in reqs],
+            "warnings": [str(w.message) for w in caught
+                         if issubclass(w.category, DeprecationWarning)],
+            "serve_s": time.perf_counter() - t1}
+        del eng
+    launches = {"moe_gmm": moe_gmm.launches,
+                "decode_attn": decode_attn.launches}
+    same = out["legacy"]["streams"] == out["config"]["streams"]
+    emit(phase, part="legacy_keywords", arch=model.cfg.arch_id,
+         n_layers=model.cfg.n_layers, identical=same,
+         legacy_warnings=out["legacy"]["warnings"],
+         config_warnings=out["config"]["warnings"],
+         serve_s={k: v["serve_s"] for k, v in out.items()},
+         launches=launches)
+    require(same and len(out["legacy"]["warnings"]) == 1
+            and not out["config"]["warnings"]
+            and all(v > 0 for v in launches.values()), phase,
+            "the legacy-keyword engine against the EngineConfig one")
+    torch.cuda.empty_cache()
+    buf, ran = io.StringIO(), {}
+    for name, argv in EXAMPLES.items():
+        spec = importlib.util.spec_from_file_location(
+            f"example_{name}", os.path.join(ROOT, "examples", "torch",
+                                            f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        t1 = time.perf_counter()
+        print(f"== examples/torch/{name}.py {' '.join(argv)}", file=buf)
+        with contextlib.redirect_stdout(buf):
+            res = mod.main(list(argv))
+        torch.cuda.synchronize()
+        ran[name] = {"seconds": time.perf_counter() - t1}
+        if name == "train_moe":
+            ran[name].update(steps=res[-1]["step"] + 1,
+                             first_ce=res[0]["ce"], last_ce=res[-1]["ce"])
+        if name == "scheduled_dispatch":
+            ran[name]["max_abs_diff"] = res
+    path = os.path.join(ROOT, "chiprun_out", "examples_stdout.txt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(buf.getvalue())
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "repro"))
+    emit(phase, part="examples", examples=ran, stdout=path,
+         jax_or_repro_imported=leaked)
+    require(not leaked and math.isfinite(ran["train_moe"]["last_ce"]),
+            phase, f"examples: {ran}, imported {leaked}")
+    emit(phase, ok=True, seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 def _rank_moe_timing(model, params, epd, c, sizes, gen, flush):
     """``moe_gmm`` over one rank's ``epd`` experts (views of layer 0's
     leaves) at bucket height ``c`` with group sizes ``sizes``; bound: the
@@ -3632,11 +3773,13 @@ def _worst(got, want) -> float:
     return worst
 
 
-def _mesh_ranks(cfg, weights, batch, opt_cfg, impl: str = "ep"):
+def _mesh_ranks(cfg, weights, batch, opt_cfg, impl: str = "ep",
+                overlap: bool = False):
     """A ``ThreadMesh`` of ``TRAIN_MESH`` on the card, and each rank's
     state for the sharded step: its model, step, shards of ``weights``
     (a whole params tree on any device), zero AdamW moments, shards of
-    ``batch`` (on the card) and their bytes."""
+    ``batch`` (on the card) and their bytes. ``overlap``: the EP layers
+    run the round-pipelined body."""
     import torch
     from repro_torch.bridge import map_tree, shard_params, shard_tensor
     from repro_torch.distributed import ThreadMesh
@@ -3650,8 +3793,9 @@ def _mesh_ranks(cfg, weights, batch, opt_cfg, impl: str = "ep"):
     states = [None] * tm.layout.size
 
     def setup(rm):
-        model = Model(cfg, device="cuda", pc=make_pc(
-            cfg, rm, impl, batch=b, cap=batch["tokens"].shape[1]))
+        model = Model(cfg, device="cuda", pc=dataclasses.replace(make_pc(
+            cfg, rm, impl, batch=b, cap=batch["tokens"].shape[1]),
+            ep_overlap=overlap))
         params = map_tree(lambda t: t.to("cuda"), shard_params(
             weights, param_specs(cfg, rm), rm, rm.rank))
         spec = input_sharding(cfg, rm, b)
@@ -3832,6 +3976,116 @@ def _train_mesh_full_fp32(phase):
     return out
 
 
+def _overlap_pair(cfg, weights, batch, opt_cfg):
+    """Two sharded steps of ``cfg`` under Aurora's rounds on
+    ``TRAIN_MESH``'s thread ranks, first through the synchronous EP body,
+    then through the round-pipelined one, from the same ``weights`` (a
+    host tree) and ``batch``: (the first steps' loss relative error, the
+    worst ratio of the updated params and of each AdamW moment after the
+    first step, the losses each run's ranks report, and each run's step
+    ms, host clock to a synchronise)."""
+    import torch
+    from repro_torch.bridge import map_tree, unshard_params
+    from repro_torch.sharding import param_specs
+    kept, losses, ms = None, {}, {}
+    ratios = []
+    for overlap in (False, True):
+        tm, states = _mesh_ranks(cfg, weights, batch, opt_cfg, "aurora",
+                                 overlap=overlap)
+        specs = param_specs(cfg, tm.layout)
+        ms[overlap] = []
+        for i in range(2):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            res = _mesh_step(tm, states)
+            torch.cuda.synchronize()
+            ms[overlap].append((time.perf_counter() - t1) * 1e3)
+            if i:
+                continue
+            losses[overlap] = sorted({r[0]["loss"] for r in res})
+            for j in range(3):
+                got = unshard_params(
+                    [(st["params"], st["opt"]["m"], st["opt"]["v"])[j]
+                     for st in states], specs, tm.layout)
+                if not overlap:
+                    got = map_tree(lambda t: t.cpu(), got)
+                    kept = (kept or []) + [got]
+                else:
+                    ratios.append(_worst(got, kept[j]))
+                del got
+        del tm, states
+        gc.collect()
+        torch.cuda.empty_cache()
+    rel = abs(losses[True][0] - losses[False][0]) / abs(losses[False][0])
+    return rel, ratios, losses, ms
+
+
+def _train_mesh_overlap_full(phase):
+    """(e) full-width phi3.5-MoE at 1 layer in fp32 (as ``(b)``: experts
+    over data x model, batch 2 x 2048, no token dropped) under Aurora's
+    rounds: one step through the round-pipelined EP body against the same
+    step through the synchronous one. Gates: the loss within 1e-5
+    relative, the updated params and both moments within 1e-5 + 1e-4 x
+    each leaf's largest magnitude. Printed: both runs' step ms (the
+    first step and a second)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import cut_depth, get_config
+    from repro_torch.models import init_params
+    from repro_torch.training import AdamWConfig
+    cfg = _no_drop(dataclasses.replace(cut_depth(get_config(TRAIN_ARCH), 1),
+                                       dtype="float32"))
+    rng = np.random.default_rng(4)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (TRAIN_MESH_BATCH, TRAIN_MESH_SEQ)).astype(np.int32))}
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rel, ratios, losses, ms = _overlap_pair(
+        cfg, init_params(cfg, 0, "cpu"), batch, AdamWConfig())
+    out = {"arch": TRAIN_ARCH, "layers": 1, "dtype": "float32",
+           "batch": TRAIN_MESH_BATCH, "seq": TRAIN_MESH_SEQ,
+           "mesh": TRAIN_MESH, "moe_impl": "aurora",
+           "loss_sync": losses[False], "loss_overlap": losses[True],
+           "loss_rel_err": rel, "params_over_bound": ratios[0],
+           "m_over_bound": ratios[1], "v_over_bound": ratios[2],
+           "sync_step_ms": ms[False], "overlap_step_ms": ms[True],
+           "peak_GB": torch.cuda.max_memory_allocated() / 1e9,
+           "seconds": time.perf_counter() - t0}
+    require(len(losses[False]) == len(losses[True]) == 1 and rel <= 1e-5
+            and max(ratios) <= 1.0, phase,
+            f"full width: the pipelined step against the synchronous {out}")
+    return out
+
+
+def _train_mesh_overlap_reduced(phase):
+    """(f) the reduced MoE archs (fp32, B 4 x S 16, no token dropped) on
+    ``TRAIN_MESH``'s thread ranks: the round-pipelined step against the
+    synchronous one under Aurora's rounds, at (e)'s tolerance."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models import init_params
+    from repro_torch.training import AdamWConfig
+    out = {}
+    for arch in ARCH_IDS:
+        cfg = _no_drop(get_config(arch).reduced())
+        if cfg.moe is None:
+            continue
+        rng = np.random.default_rng(3)
+        batch = {"tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab, (4, 16)).astype(np.int32))}
+        rel, ratios, losses, ms = _overlap_pair(
+            cfg, init_params(cfg, 0, "cpu"), batch, AdamWConfig())
+        out[arch] = {"loss_rel_err": rel, "params_over_bound": ratios[0],
+                     "m_over_bound": ratios[1], "v_over_bound": ratios[2],
+                     "sync_step_ms": ms[False], "overlap_step_ms": ms[True]}
+        require(len(losses[False]) == len(losses[True]) == 1
+                and rel <= 1e-5 and max(ratios) <= 1.0, phase,
+                f"{arch}: the pipelined step against the synchronous "
+                f"{out[arch]}")
+    return out
+
+
 def _train_mesh_full_bf16(phase):
     """(c) full-width phi3.5-MoE at 2 layers in bf16 with remat, batch 2 x
     2048 on ``TRAIN_MESH``'s thread ranks, AdamW with the dry run's
@@ -3919,7 +4173,8 @@ def phase_train_mesh():
     step; (b) full width in fp32 against the one-card step; (c) full
     width in bf16 with remat, timed and held against the dry run to the
     byte; (d) neither kernel's launch counter moves (training takes the
-    plain route)."""
+    plain route); (e) full width in fp32 and (f) the reduced MoE archs
+    through the round-pipelined EP body against the synchronous one."""
     import torch
     from repro_torch.kernels.decode_attn import decode_attn
     from repro_torch.kernels.moe_gmm import moe_gmm
@@ -3937,6 +4192,14 @@ def phase_train_mesh():
     gc.collect()
     torch.cuda.empty_cache()
     emit(phase, part="full_width_bf16", **_train_mesh_full_bf16(phase))
+    t_overlap = time.perf_counter()
+    emit(phase, part="overlap_full_width_fp32",
+         tol="loss 1e-5 rel; leaves 1e-5 + 1e-4 max|leaf|",
+         **_train_mesh_overlap_full(phase))
+    emit(phase, part="overlap_reduced", mesh=TRAIN_MESH,
+         archs=_train_mesh_overlap_reduced(phase),
+         tol="loss 1e-5 rel; leaves 1e-5 + 1e-4 max|leaf|",
+         seconds_e_and_f=time.perf_counter() - t_overlap)
     launches = {"moe_gmm": moe_gmm.launches,
                 "decode_attn": decode_attn.launches}
     require(launches == {"moe_gmm": 0, "decode_attn": 0}, phase,
@@ -4750,9 +5013,10 @@ def main() -> int:
     traced = phase_telemetry(model, params, streams)
     ep = phase_serve_ep(model, params, streams, solo, monitor,
                         solo["max_memory_allocated_GB"])
+    legacy = phase_legacy_and_examples(model, params)
     for r in rows:
         r["launches"] += sum(part[r["name"]] for part in (
-            colocated, replicated, chaos, traced, ep))
+            colocated, replicated, chaos, traced, ep, legacy))
         r["arch"] = model.cfg.arch_id
     dense_rows, colocated_moe = phase_serve_dense(model, params, streams)
     family_rows, family_moe = phase_serve_families(model, params, streams,

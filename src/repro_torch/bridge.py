@@ -5,7 +5,9 @@ shapes: params from ``init_params`` and per-slot caches from
 ``init_cache(per_slot_len=True)``, stacked per segment. The JAX side hands
 over its leaves as numpy arrays (``jax.tree.map(np.asarray, tree)``); this
 module turns them into tensors on a device and back, bit for bit, keeping
-every leaf path. bfloat16 crosses as its 16-bit pattern.
+every leaf path. bfloat16 crosses as its 16-bit pattern. Tensors land on
+the card unless ``device="cpu"`` (or another device) is asked for
+(``device.resolve_device``: no card, no fallback).
 """
 
 from __future__ import annotations
@@ -13,12 +15,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device import resolve_device
+
 
 def _is_bf16(dtype) -> bool:
     return getattr(dtype, "name", str(dtype)) == "bfloat16"
 
 
-def leaf_to_torch(a, device="cpu") -> torch.Tensor:
+def leaf_to_torch(a, device="cuda") -> torch.Tensor:
+    device = resolve_device(device)
     a = np.asarray(a)
     if _is_bf16(a.dtype):
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
@@ -43,8 +48,9 @@ def map_tree(fn, tree):
     return fn(tree)
 
 
-def to_torch(tree, device="cpu"):
+def to_torch(tree, device="cuda"):
     """numpy-leaf tree -> tensor-leaf tree on ``device`` (same paths)."""
+    device = resolve_device(device)
     return map_tree(lambda a: leaf_to_torch(a, device), tree)
 
 

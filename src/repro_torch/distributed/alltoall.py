@@ -136,9 +136,12 @@ def _exchange_rounds(bufs, group: EPGroup, rounds):
     """Scheduled exchange: one (n, ...) buffer per held rank; out[s] =
     row ``me`` of rank s's buffer. Equivalent to the all-to-all, expressed
     as the round sequence; rows no round delivers stay zero. Self-traffic
-    never crosses the network (§4.2 footnote 1)."""
+    never crosses the network (§4.2 footnote 1). The results are
+    contiguous whatever the buffers' strides (a backward's grads may be
+    transposed views): a ``DistGroup`` receives into their rows."""
     held = dict(zip(group.ranks, bufs))
-    outs = {me: torch.zeros_like(b) for me, b in held.items()}
+    outs = {me: torch.zeros(b.shape, dtype=b.dtype, device=b.device)
+            for me, b in held.items()}
     for dst in rounds:
         src = inverse_round(dst)
         group.permute(dst, lambda i, dst=dst: held[i][dst[i]],

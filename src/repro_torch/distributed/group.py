@@ -101,11 +101,12 @@ class EPGroup:
 
     def _op(self, fn, values, per_rank: bool = True):
         """``fn(group, values)``: one differentiable exchange
-        (``alltoall.ep_all_to_all``, ``ep_all_gather``, ``ep_mean``) over
-        the held ranks' ``values``, returning one result per held rank
-        (``per_rank``) or one for them all. A mesh's EP groups run it
-        jointly over a thread group with grad, and keep or replay its
-        result under remat (``distributed.mesh``)."""
+        (``alltoall.ep_all_to_all``, ``ep_all_gather``, ``ep_mean``, a
+        round of ``overlap``'s pipeline) over the held ranks' ``values``
+        (a tensor or a tuple of tensors each), returning one result per
+        held rank (``per_rank``) or one for them all. A mesh's EP groups
+        run it jointly over a thread group with grad, and keep or replay
+        its result under remat (``distributed.mesh``)."""
         return fn(self, values)
 
     @property

@@ -92,7 +92,7 @@ import threading
 import torch
 from torch.utils._python_dispatch import _disable_current_modes
 
-from ..bridge import map_tree
+from ..bridge import map_tree, tree_leaves
 from ..device import current_cuda_device, resolve_device
 from .group import _DONE, DistGroup, EPGroup, LocalGroup, inverse_round
 
@@ -516,7 +516,8 @@ class _ThreadEPGroup(EPGroup):
     def _op(self, fn, values, per_rank: bool = True):
         value, = values
         rm = self.rm
-        if not (torch.is_grad_enabled() and value.requires_grad):
+        if not (torch.is_grad_enabled() and any(
+                t.requires_grad for t in tree_leaves(value))):
             return rm._replayed(lambda: fn(self, values))
 
         def joint():

@@ -112,6 +112,16 @@ def count(fn) -> None:
         fn.launches += 1
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """A hand-written kernel has no backward, so its result carries no
+    grad: raise rather than detach an input that needs one (the plain
+    version, on CPU tensors, stays differentiable)."""
+    import torch
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward: train on the plain "
+                           "path (kernels=None)")
+
+
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
     if err != 0:

@@ -135,6 +135,7 @@ def decode_attn(q, k, v, valid_len, return_lse: bool = False):
         return ref.decode_attn_ref(q, k, v, valid_len, return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attn runs on cpu or cuda, not {q.device}")
+    _build.refuse_grad("decode_attn", q, k, v)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q/k/v dtypes differ: {q.dtype}/{k.dtype}/{v.dtype}")
     geo = geometry(b, h, hkv, s, d, q.dtype)

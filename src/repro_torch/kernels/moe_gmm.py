@@ -131,6 +131,7 @@ def moe_gmm(x, w_gate, w_up, w_down, *, group_sizes=None,
                                group_sizes=group_sizes)
     if x.device.type != "cuda":
         raise ValueError(f"moe_gmm runs on cpu or cuda, not {x.device}")
+    _build.refuse_grad("moe_gmm", x, w_gate, w_up, w_down)
     e, c, d = x.shape
     f = w_gate.shape[-1]
     if group_sizes is None:

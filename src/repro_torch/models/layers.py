@@ -99,7 +99,7 @@ def rmsnorm(w, x, eps: float):
     return (y * (1.0 + w.float())).to(x.dtype)
 
 
-def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
                                          device=device) / head_dim))
 

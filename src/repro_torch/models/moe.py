@@ -28,6 +28,7 @@ import functools
 import torch
 
 from ..core.errors import FaultError
+from ..device import resolve_device
 from ..kernels import ops as kops
 from ..kernels.moe_gmm import align_capacity
 from ..kernels.ref import act_fn
@@ -181,10 +182,11 @@ def _spec_tensors(spec: ReplicationSpec, device: torch.device):
                  for v in (spec.base, spec.counts, spec.phys_to_logical))
 
 
-def replica_arrays(spec: ReplicationSpec, device=None):
-    """(base (E,), counts (E,)) as int64 tensors for dispatch remaps
-    (cached per device; read-only)."""
-    return _spec_tensors(spec, torch.device(device or "cpu"))[:2]
+def replica_arrays(spec: ReplicationSpec, device="cuda"):
+    """(base (E,), counts (E,)) as int64 tensors for dispatch remaps, on
+    the card unless another ``device`` is asked for (cached per device;
+    read-only)."""
+    return _spec_tensors(spec, resolve_device(device))[:2]
 
 
 def shrink_replication(spec: ReplicationSpec | None,

@@ -11,7 +11,7 @@ from ..core.errors import FaultError, PlanError
 from .config import (AdmissionPolicy, EdfAdmission, EngineConfig,
                      FifoAdmission, LengthBucketedAdmission, RequestSpec,
                      ShedEvent, TenantSpec, TokenBudgetAdmission,
-                     make_bucketer, scale_admission)
+                     coerce_admission, make_bucketer, scale_admission)
 from .engine import (ContinuousEngine, Request, ServingEngine,
                      poisson_requests, serve_stream)
 from .colocated import (ColocatedContinuousEngine, ColocatedEngine,
@@ -43,7 +43,8 @@ __all__ = ["AdmissionPolicy", "BusEvent", "ChaosHarness",
            "ServingEngine", "ShedEvent",
            "SpanRecord", "Straggler", "Telemetry", "TenantSpec",
            "TokenBudgetAdmission", "TrafficMonitor", "apply_pairing",
-           "build_lockstep_step", "device_traffic", "distribute",
+           "build_lockstep_step", "coerce_admission", "device_traffic",
+           "distribute",
            "ep_size", "inverse_pair", "make_bucketer", "poisson_requests",
            "record_adoption", "reseat_pairing", "resolve_rounds",
            "rounds_from_plan", "rounds_from_trace", "rounds_from_traffic",

@@ -52,7 +52,8 @@ import torch
 from ..core.errors import PlanError
 from ..models import Model
 from ..models.moe import expert_leaves, expert_slabs
-from .config import EngineConfig, TenantSpec, scale_admission
+from .config import (EngineConfig, TenantSpec, coerce_config,
+                     scale_admission)
 from .engine import refuse_encoder_decoder, wrap_step_callable
 from .telemetry import record_adoption
 
@@ -286,11 +287,11 @@ class ColocatedContinuousEngine:
                  batch_slots: int, cache_cap: int,
                  config: EngineConfig | None = None,
                  pair: list[int] | None = None,
-                 replan=None, monitor_halflife: float = 128.0):
+                 replan=None, monitor_halflife: float = 128.0, **legacy):
         from .engine import ContinuousEngine
         from .monitor import TrafficMonitor
 
-        config = config if config is not None else EngineConfig()
+        config = coerce_config(config, legacy, type(self).__name__)
         self.config = config
         # Kernelize once, before the pools and the lockstep step exist.
         model_a = config.kernelize(model_a)
@@ -440,13 +441,13 @@ class MultiTenantContinuousEngine:
                  params: list | None = None, batch_slots: int = None,
                  cache_cap: int = None, config: EngineConfig | None = None,
                  groups: list[tuple[int, ...]] | None = None,
-                 replan=None, monitor_halflife: float = 128.0):
+                 replan=None, monitor_halflife: float = 128.0, **legacy):
         from .engine import ContinuousEngine
         from .monitor import TrafficMonitor
 
         if batch_slots is None or cache_cap is None:
             raise TypeError("batch_slots and cache_cap are required")
-        config = config if config is not None else EngineConfig()
+        config = coerce_config(config, legacy, type(self).__name__)
         self.config = config
         if models is None:
             # Config-driven construction: every tenant (model, params,

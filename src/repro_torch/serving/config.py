@@ -22,15 +22,22 @@ each request's tokens depend only on its own slot row.
 
 ``TenantSpec`` declares a tenant's SLO targets (engine-step units), which
 the engine turns into per-request deadlines at submit, and for the
-multi-tenant engine its model, params and expert pairing. Not ported: the
-reference's deprecated-keyword and ``chunk_budget`` shims, and
-``EngineConfig.jit/step_wrapper/telemetry``.
+multi-tenant engine its model, params and expert pairing.
+
+The reference's deprecated surfaces are kept as its shims keep them:
+the engines take its old constructor keywords (``_LEGACY_KEYS``), folded
+into an ``EngineConfig`` by ``coerce_config`` with one
+``DeprecationWarning`` per engine; a policy that implements only the old
+int-based ``chunk_budget(num_active, chunks)`` is wrapped into ``select``
+(``coerce_admission``, one warning per config); and the stock policies
+still answer ``chunk_budget`` (with a warning) through ``select``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import Callable, Protocol, Sequence
 
 
@@ -100,6 +107,17 @@ def _fifo_order(reqs: Sequence[RequestSpec]) -> tuple[int, ...]:
     return tuple(range(len(reqs)))
 
 
+def _deprecated_chunk_budget(policy, num_active: int,
+                             chunks: Sequence[int]) -> int:
+    warnings.warn(
+        f"{type(policy).__name__}.chunk_budget(num_active, chunks) is "
+        "deprecated — admission policies now expose select(num_active, "
+        "reqs) over RequestSpec objects (repro_torch.serving.RequestSpec)",
+        DeprecationWarning, stacklevel=3)
+    return len(policy.select(num_active,
+                             [RequestSpec(chunk=int(c)) for c in chunks]))
+
+
 class AdmissionPolicy(Protocol):
     """How queued prompts enter the slot pool.
 
@@ -141,6 +159,10 @@ class FifoAdmission:
     def order(self, reqs: Sequence[RequestSpec]) -> tuple[int, ...]:
         return _fifo_order(reqs)
 
+    def chunk_budget(self, num_active: int, chunks: Sequence[int]) -> int:
+        """Deprecated: the number of ``chunks`` that ``select`` runs."""
+        return _deprecated_chunk_budget(self, num_active, chunks)
+
 
 @dataclasses.dataclass(frozen=True)
 class LengthBucketedAdmission:
@@ -166,6 +188,10 @@ class LengthBucketedAdmission:
 
     def order(self, reqs: Sequence[RequestSpec]) -> tuple[int, ...]:
         return _fifo_order(reqs)
+
+    def chunk_budget(self, num_active: int, chunks: Sequence[int]) -> int:
+        """Deprecated: the number of ``chunks`` that ``select`` runs."""
+        return _deprecated_chunk_budget(self, num_active, chunks)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,6 +235,10 @@ class TokenBudgetAdmission:
 
     def order(self, reqs: Sequence[RequestSpec]) -> tuple[int, ...]:
         return _fifo_order(reqs)
+
+    def chunk_budget(self, num_active: int, chunks: Sequence[int]) -> int:
+        """Deprecated: the number of ``chunks`` that ``select`` runs."""
+        return _deprecated_chunk_budget(self, num_active, chunks)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -307,6 +337,56 @@ class EdfAdmission:
                     "after arrival")
         return None
 
+    def chunk_budget(self, num_active: int, chunks: Sequence[int]) -> int:
+        """Deprecated: the number of ``chunks`` that ``select`` runs."""
+        return _deprecated_chunk_budget(self, num_active, chunks)
+
+
+class _LegacyAdmission:
+    """The shim of a policy that implements only the deprecated int-based
+    ``chunk_budget``: ``select`` forwards the bare chunk sizes and admits
+    the returned prefix in arrival order. Made by ``coerce_admission``."""
+
+    def __init__(self, policy):
+        self._policy = policy
+        self.chunk = getattr(policy, "chunk", None)
+        self.budget = getattr(policy, "budget", None)
+        self.bucket_policy = getattr(policy, "bucket_policy", "pow2")
+
+    def pad(self, prompt_len: int) -> int:
+        return self._policy.pad(prompt_len)
+
+    def select(self, num_active: int,
+               reqs: Sequence[RequestSpec]) -> tuple[int, ...]:
+        k = self._policy.chunk_budget(num_active, [r.chunk for r in reqs])
+        return tuple(range(min(int(k), len(reqs))))
+
+    def order(self, reqs: Sequence[RequestSpec]) -> tuple[int, ...]:
+        return _fifo_order(reqs)
+
+
+def coerce_admission(policy, owner: str = "EngineConfig"):
+    """``policy`` as a ``select``-based ``AdmissionPolicy``: a policy with
+    ``select`` passes through; one with only the deprecated
+    ``chunk_budget`` is wrapped in ``_LegacyAdmission`` with one
+    ``DeprecationWarning`` (per call: ``EngineConfig.resolve_admission``
+    caches the result, so an engine warns once); anything else raises
+    ``TypeError``."""
+    if hasattr(policy, "select"):
+        return policy
+    if hasattr(policy, "chunk_budget"):
+        warnings.warn(
+            f"{owner}: admission policy {type(policy).__name__} only "
+            "implements the deprecated int-based chunk_budget(num_active, "
+            "chunks) — implement select(num_active, reqs) over "
+            "repro_torch.serving.RequestSpec objects instead",
+            DeprecationWarning, stacklevel=3)
+        return _LegacyAdmission(policy)
+    raise TypeError(
+        f"{owner}: {type(policy).__name__} is not an admission policy "
+        "(needs select(num_active, reqs) — see "
+        "repro_torch.serving.AdmissionPolicy)")
+
 
 @dataclasses.dataclass(frozen=True)
 class TenantSpec:
@@ -383,6 +463,9 @@ class EngineConfig:
     the colocated and multi-tenant engines give one to each pool.
     ``kernels``: ``False`` (plain dense path), ``True`` (default
     ``KernelConfig``) or a ``KernelConfig``, applied by ``kernelize``.
+    ``jit``: the reference's compile switch (``False`` runs its steps
+    eagerly); the port's steps always run eagerly, so it changes nothing
+    here and is kept so that a reference config carries over.
     ``step_wrapper`` wraps every step callable the engine runs (prefill,
     chunk, decode, pool, lockstep decode); fault injection times and
     screens steps through it. ``telemetry`` attaches a
@@ -402,6 +485,7 @@ class EngineConfig:
     admission: AdmissionPolicy | None = None
     tenants: tuple[TenantSpec, ...] = ()
     kernels: object = False          # bool | KernelConfig
+    jit: bool = True
     step_wrapper: Callable | None = None
     telemetry: object = None         # Telemetry | None
     event_capacity: int = 4096
@@ -451,17 +535,14 @@ class EngineConfig:
 
     def resolve_admission(self) -> AdmissionPolicy:
         """The admission policy this config realizes (an explicit
-        ``admission`` wins; else the shorthand's stock policy), cached on
-        the config."""
+        ``admission`` wins, through ``coerce_admission``; else the
+        shorthand's stock policy), cached on the config, so a shimmed
+        ``chunk_budget`` policy warns once."""
         cached = getattr(self, "_resolved_admission", None)
         if cached is not None:
             return cached
         if self.admission is not None:
-            if not hasattr(self.admission, "select"):
-                raise TypeError(
-                    f"{type(self.admission).__name__} is not an admission "
-                    "policy (needs select(num_active, reqs))")
-            resolved = self.admission
+            resolved = coerce_admission(self.admission)
         elif self.prefill_chunk is None:
             resolved = FifoAdmission(bucket_policy=self.bucket_policy)
         elif self.step_token_budget is None:
@@ -478,3 +559,37 @@ class EngineConfig:
         """Route ``model`` through the kernel hot path per ``self.kernels``
         (no-op when False)."""
         return model.with_kernels(self.kernels)
+
+
+# The reference's old per-engine constructor keywords, each an
+# ``EngineConfig`` field.
+_LEGACY_KEYS = ("prefill_len", "prefill_chunk", "step_token_budget",
+                "bucket_policy", "kernels", "jit", "step_wrapper")
+
+
+def coerce_config(config: EngineConfig | None, kwargs: dict, owner: str,
+                  strict: bool = True) -> EngineConfig:
+    """The deprecated-keyword shim of the engine constructors: pop the
+    ``_LEGACY_KEYS`` out of ``kwargs``, fold them into an ``EngineConfig``
+    with one ``DeprecationWarning``, and return the effective config.
+
+    ``strict=True`` (the engine constructors) raises ``TypeError`` on any
+    key left over; the ``Distributed*`` engines coerce first with
+    ``strict=False``, because their ``kwargs`` still carry arguments for
+    the parent constructor, which then runs the strict pass. ``config``
+    together with legacy keywords raises ``ValueError``."""
+    legacy = {k: kwargs.pop(k) for k in _LEGACY_KEYS if k in kwargs}
+    if strict and kwargs:
+        raise TypeError(f"{owner}: unexpected keyword argument(s) "
+                        f"{sorted(kwargs)}")
+    if not legacy:
+        return config if config is not None else EngineConfig()
+    if config is not None:
+        raise ValueError(
+            f"{owner}: pass either config=EngineConfig(...) or the "
+            f"deprecated keyword(s) {sorted(legacy)}, not both")
+    warnings.warn(
+        f"{owner}({', '.join(sorted(legacy))}=...) is deprecated — pass "
+        "config=EngineConfig(...) (repro_torch.serving.EngineConfig)",
+        DeprecationWarning, stacklevel=3)
+    return EngineConfig(**legacy)

@@ -39,7 +39,7 @@ from ..distributed.alltoall import (aurora_rounds_from_schedule,
 from ..models import Model
 from ..sharding import make_pc
 from .colocated import ColocatedContinuousEngine, MultiTenantContinuousEngine
-from .config import EngineConfig
+from .config import EngineConfig, coerce_config
 from .engine import ContinuousEngine
 from .telemetry import record_adoption
 
@@ -209,7 +209,9 @@ class DistributedEngine(ContinuousEngine):
     def __init__(self, model: Model, params, batch_slots: int,
                  cache_cap: int, *, group, moe_impl: str = "aurora",
                  rounds=None, plan=None, overlap: bool = False,
-                 config: EngineConfig | None = None, monitor=None):
+                 config: EngineConfig | None = None, monitor=None, **kw):
+        config = coerce_config(config, kw, type(self).__name__,
+                               strict=False)
         model = distribute(model, group, moe_impl=moe_impl, overlap=overlap)
         self.group = group
         self.n_ep = ep_size(model.pc)
@@ -217,7 +219,7 @@ class DistributedEngine(ContinuousEngine):
         if rounds is not None:
             model = _with_rounds(model, rounds)
         super().__init__(model, params, batch_slots, cache_cap,
-                         config=config, monitor=monitor)
+                         config=config, monitor=monitor, **kw)
 
     @property
     def rounds(self):
@@ -346,6 +348,8 @@ class DistributedColocatedEngine(ColocatedContinuousEngine):
                  moe_impl: str = "aurora", rounds=None, plan=None,
                  overlap: bool = False, refresh_rounds: bool = True,
                  config: EngineConfig | None = None, **kw):
+        config = coerce_config(config, kw, type(self).__name__,
+                               strict=False)
         model_a = distribute(model_a, group, moe_impl=moe_impl,
                              overlap=overlap)
         model_b = distribute(model_b, group, moe_impl=moe_impl,
@@ -407,6 +411,8 @@ class DistributedMultiTenantEngine(MultiTenantContinuousEngine):
                  rounds=None, plan=None, overlap: bool = False,
                  refresh_rounds: bool = True,
                  config: EngineConfig | None = None, **kw):
+        config = coerce_config(config, kw, type(self).__name__,
+                               strict=False)
         models = [distribute(m, group, moe_impl=moe_impl, overlap=overlap)
                   for m in models]
         self.group = group

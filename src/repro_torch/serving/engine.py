@@ -78,7 +78,8 @@ import torch
 from ..bridge import map_tree
 from ..core.errors import FaultError, PlanError
 from ..models import Model
-from .config import EngineConfig, RequestSpec, ShedEvent
+from .config import (EngineConfig, RequestSpec, ShedEvent, coerce_config,
+                     make_bucketer)
 from .events import RingBuffer
 from .telemetry import STEP_BOUNDS, record_adoption, tree_leaves
 
@@ -241,9 +242,9 @@ class ContinuousEngine:
 
     def __init__(self, model: Model, params, batch_slots: int,
                  cache_cap: int, config: EngineConfig | None = None,
-                 monitor=None):
+                 monitor=None, **legacy):
+        config = coerce_config(config, legacy, type(self).__name__)
         refuse_encoder_decoder(model, "ContinuousEngine")
-        config = config if config is not None else EngineConfig()
         self.config = config
         model = config.kernelize(model)
         self.model = model
@@ -252,6 +253,10 @@ class ContinuousEngine:
         self.batch_slots = batch_slots
         self.cache_cap = cache_cap
         self.admission = config.resolve_admission()
+        # Prompts pad by the policy's bucket_policy, as the reference's
+        # engine pads them (a shimmed chunk_budget policy's defaults to
+        # "pow2", whatever its own ``pad`` says).
+        self._bucketer = make_bucketer(self.admission.bucket_policy)
         if len(config.tenants) > 1:
             raise ValueError(
                 f"{type(self).__name__} hosts one tenant; config.tenants "
@@ -492,7 +497,7 @@ class ContinuousEngine:
                 raise ValueError(f"prompt len {n} > prefill_len "
                                  f"{self.prefill_len}")
             return self.prefill_len
-        p = self.admission.pad(n)
+        p = self._bucketer(n)
         if p < n:
             raise ValueError(f"bucket policy shrank {n} to {p}")
         p = min(p, self.cache_cap)

@@ -46,7 +46,8 @@ def side(name):
     cfg = get_config(ARCH).reduced()
     return types.SimpleNamespace(
         m=tserving, core=tcore, cfg=cfg,
-        model=lambda: Model(cfg, device="cpu"), params=bridge.to_torch)
+        model=lambda: Model(cfg, device="cpu"),
+        params=lambda w: bridge.to_torch(w, device="cpu"))
 
 
 JAX, PORT = side("jax"), side("torch")
@@ -131,7 +132,7 @@ def tenant(s, arch, seed):
         return (JaxModel(jax_get_config(arch).reduced()),
                 jax.tree.map(jnp.asarray, w))
     return (Model(get_config(arch).reduced(), device="cpu"),
-            bridge.to_torch(w))
+            bridge.to_torch(w, device="cpu"))
 
 
 ADMISSION = {"one_shot": {}, "chunk4": {"prefill_chunk": 4},

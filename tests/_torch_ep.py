@@ -125,7 +125,7 @@ def engine_worker(cfg, weights, prompts, new, moe_impl, overlap):
     from repro_torch.models import Model
     from repro_torch.serving import DistributedEngine, EngineConfig, Request
     eng = DistributedEngine(
-        Model(cfg, device="cpu"), bridge.to_torch(weights), batch_slots=2,
+        Model(cfg, device="cpu"), bridge.to_torch(weights, device="cpu"), batch_slots=2,
         cache_cap=32, group=DistGroup(device="cpu"), moe_impl=moe_impl,
         overlap=overlap,
         config=EngineConfig(prefill_len=8, kernels=True))
@@ -133,3 +133,41 @@ def engine_worker(cfg, weights, prompts, new, moe_impl, overlap):
             for i, p in enumerate(prompts)]
     eng.serve(reqs)
     return [list(map(int, r.out_tokens)) for r in reqs]
+
+
+def square_loss_grads(inp, group, rounds, counts, overlap):
+    """The grads of ``sum(y**2) + aux`` through ``ep_dispatch_combine``
+    ("aurora" over ``rounds``, round robin when None; the pipeline when
+    ``overlap``) with respect to x, the router and the expert leaves, in
+    that order, from this process's held ranks. Each process seeds its
+    backward with its share of the replicated loss (held ranks / n), so the
+    grads summed over the processes are the layer's."""
+    import torch
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.distributed import ep_dispatch_combine
+    from repro_torch.models import ParallelContext
+    from repro_torch.models.moe import ReplicationSpec
+    moe = MoEConfig(n_experts=inp["router"].shape[1], top_k=2,
+                    d_ff=inp["w_gate"].shape[-1],
+                    capacity_factor=float(inp["cf"]))
+    leaves = [torch.from_numpy(inp[k]).requires_grad_(True)
+              for k in ("x", "router", "w_gate", "w_up", "w_down")]
+    x, router, *ws = leaves
+    experts = dict(zip(("w_gate", "w_up", "w_down"), ws))
+    pc = ParallelContext(group=group, moe_impl="aurora",
+                         aurora_rounds=rounds, ep_overlap=overlap)
+    y, aux = ep_dispatch_combine(
+        x, router, experts, moe, "swiglu", pc,
+        spec=ReplicationSpec.from_counts(counts) if counts else None)
+    loss = (y ** 2).sum() + aux
+    share = len(group.ranks) / group.n
+    return [g.numpy() for g in torch.autograd.grad(loss * share, leaves)]
+
+
+def overlap_grads_worker(cases):
+    """``square_loss_grads`` on this rank for each named case (inputs,
+    rounds, replication counts, overlap flag)."""
+    from repro_torch.distributed import DistGroup
+    group = DistGroup(device="cpu")
+    return {name: square_loss_grads(inp, group, rounds, counts, overlap)
+            for name, (inp, rounds, counts, overlap) in cases.items()}

@@ -22,6 +22,7 @@ import pickle
 import numpy as np
 
 B, PROMPT, CAP = 2, 8, 32
+EP_IMPLS = ("ep", "aurora", "overlap")
 # An encoder-decoder's source frames: 6 splits over a model axis of 2
 # but not of 4, so the cross K/V runs both as sequence shards and whole.
 SRC = 6
@@ -39,7 +40,7 @@ def rank_body(cfg, params_np, inputs, steps, rm, kernels=False):
     src = inputs["frames"].shape[1] if "frames" in inputs else 0
     model = Model(cfg, device="cpu", pc=make_pc(
         cfg, rm, batch=b, cap=CAP, src_len=src)).with_kernels(kernels)
-    params = shard_params(to_torch(params_np), param_specs(cfg, rm), rm,
+    params = shard_params(to_torch(params_np, device="cpu"), param_specs(cfg, rm), rm,
                           rm.rank)
     cache = model.init_cache(b, CAP, src_len=src)
     spec = input_sharding(cfg, rm, b)
@@ -70,9 +71,19 @@ def assemble(layout, cfg, per_rank, b):
             for i in range(len(per_rank[0]))]
 
 
+def _ep_pc(impl: str) -> dict:
+    """The ``ParallelContext`` fields of an EP exchange: "ep", "aurora", or
+    "overlap" (Aurora's rounds through the round-pipelined body)."""
+    return {"moe_impl": "aurora" if impl == "overlap" else impl,
+            "ep_overlap": impl == "overlap"}
+
+
 def train_rank_body(cfg, params_np, batch_np, rm, impl="ep"):
     """This rank's sharded train loss and grads (numpy leaves) of
-    ``batch_np`` (the global batch), with remat, over ``rm``."""
+    ``batch_np`` (the global batch), with remat, over ``rm`` (``impl``:
+    an ``_ep_pc`` name)."""
+    import dataclasses
+
     import torch
     from repro_torch.bridge import (shard_params, shard_tensor, to_numpy,
                                     to_torch)
@@ -80,10 +91,12 @@ def train_rank_body(cfg, params_np, batch_np, rm, impl="ep"):
     from repro_torch.sharding import input_sharding, make_pc, param_specs
     from repro_torch.training.loop import loss_and_grads, make_loss_fn
     b, s = batch_np["tokens"].shape
-    model = Model(cfg, device="cpu", pc=make_pc(cfg, rm, impl, batch=b,
-                                                cap=s))
+    kw = _ep_pc(impl)
+    model = Model(cfg, device="cpu", pc=dataclasses.replace(
+        make_pc(cfg, rm, kw["moe_impl"], batch=b, cap=s),
+        ep_overlap=kw["ep_overlap"]))
     specs = param_specs(cfg, rm)
-    params = shard_params(to_torch(params_np), specs, rm, rm.rank)
+    params = shard_params(to_torch(params_np, device="cpu"), specs, rm, rm.rank)
     spec = input_sharding(cfg, rm, b)
     batch = {k: shard_tensor(torch.from_numpy(v), spec, rm, rm.rank)
              for k, v in batch_np.items()}
@@ -106,7 +119,7 @@ def ep_layer_grads(cfg, p_np, x_np, w_np, group, impl):
     router = torch.from_numpy(p_np["router"]).requires_grad_(True)
     experts = {k: torch.from_numpy(v).requires_grad_(True)
                for k, v in p_np["experts"].items()}
-    pc = ParallelContext(group=group, moe_impl=impl)
+    pc = ParallelContext(group=group, **_ep_pc(impl))
     y, aux = ep_dispatch_combine(xt, router, experts, cfg.moe, cfg.act, pc)
     loss = (y * torch.from_numpy(w_np)).sum() + aux
     held = len(group.ranks)
@@ -163,7 +176,7 @@ def gloo_mesh_run(tmp, layout, cfg, params_np, inputs, steps) -> list:
 
 def gloo_train_body(shape, axes, cfg, params_np, batch_np, layer, ck):
     """One gloo rank of ``test_torch_mesh_train_ranks``: the sharded train
-    loss and grads under "ep" and "aurora" over a ``DistMesh``, its
+    loss and grads under each of ``EP_IMPLS`` over a ``DistMesh``, its
     shards of ``params_np`` saved whole to ``ck``, and ``ep_layer_grads``
     over the world as a ``DistGroup`` (``layer``: (params, tokens,
     weights) numpy)."""
@@ -174,13 +187,13 @@ def gloo_train_body(shape, axes, cfg, params_np, batch_np, layer, ck):
     from repro_torch.training import save_checkpoint
     rm = DistMesh(MeshLayout(shape, axes), "cpu")
     out = {}
-    for impl in ("ep", "aurora"):
+    for impl in EP_IMPLS:
         rm.collective_bytes = 0
         out[impl] = train_rank_body(cfg, params_np, batch_np, rm, impl)
     specs = param_specs(cfg, rm)
-    save_checkpoint(ck, shard_params(to_torch(params_np), specs, rm,
+    save_checkpoint(ck, shard_params(to_torch(params_np, device="cpu"), specs, rm,
                                      rm.rank), step=0, shardings=(specs, rm))
     out["layer"] = {impl: ep_layer_grads(cfg, *layer,
                                          DistGroup(device="cpu"), impl)
-                    for impl in ("ep", "aurora")}
+                    for impl in EP_IMPLS}
     return out

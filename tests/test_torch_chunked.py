@@ -47,7 +47,8 @@ def moe_models():
     mj = JaxModel(cfg_j).with_kernels()
     params_j = mj.init(jax.random.PRNGKey(0))
     mt = Model(get_config(ARCH).reduced(), device="cpu").with_kernels()
-    return mj, params_j, mt, bridge.to_torch(jax.tree.map(np.asarray, params_j))
+    return mj, params_j, mt, bridge.to_torch(
+        jax.tree.map(np.asarray, params_j), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -56,7 +57,8 @@ def dense_models():
     params_j = mj.init(jax.random.PRNGKey(1))
     mt = Model(dataclasses.replace(get_config(ARCH).reduced(), **DENSE),
                device="cpu")
-    return mj, params_j, mt, bridge.to_torch(jax.tree.map(np.asarray, params_j))
+    return mj, params_j, mt, bridge.to_torch(
+        jax.tree.map(np.asarray, params_j), device="cpu")
 
 
 # (Sq, causal_offset, valid_len): scalar offsets, (B,) vectors, and
@@ -304,7 +306,7 @@ def test_slice_and_merge_slot_match_jax(moe_models):
         jax.tree.map(np.asarray, mj.init_cache(3, 16, per_slot_len=True)))
     cache_np["len"] = np.array([5, 11, 2], np.int32)
     cache_j = jax.tree.map(jnp.asarray, cache_np)
-    cache_t = bridge.to_torch(cache_np)
+    cache_t = bridge.to_torch(cache_np, device="cpu")
     view = slice_cache_slot(cache_t, 1)
     assert int(view["len"]) == 11
     assert view["segments"][0][0]["k"].data_ptr() == (

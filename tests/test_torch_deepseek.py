@@ -142,7 +142,7 @@ def test_model_logits_match_jax(weights, kernels):
     mj = JaxModel(CFG_J).with_kernels(kernels)
     mt = Model(CFG, device="cpu").with_kernels(kernels)
     params_j = jax.tree.map(jnp.asarray, weights)
-    params_t = bridge.to_torch(weights)
+    params_t = bridge.to_torch(weights, device="cpu")
     rng = np.random.default_rng(3)
     cap, tol = 32, dict(rtol=1e-4, atol=1e-4)
     cache_j = mj.init_cache(3, cap, per_slot_len=True)
@@ -200,7 +200,7 @@ def jax_streams(weights):
 @pytest.mark.parametrize("kernels", [True, False], ids=["kernel", "plain"])
 def test_greedy_streams_match_jax_engine(weights, jax_streams, kernels):
     eng = tserving.ContinuousEngine(
-        Model(CFG, device="cpu"), bridge.to_torch(weights), batch_slots=3,
+        Model(CFG, device="cpu"), bridge.to_torch(weights, device="cpu"), batch_slots=3,
         cache_cap=48, config=tserving.EngineConfig(kernels=kernels))
     got = eng.serve(_poisson(tserving))
     assert (_streams(got), eng.decode_steps) == jax_streams
@@ -216,12 +216,12 @@ def test_chunked_engine_refuses_deepseek_prompt(weights):
     assert not model.supports_chunked_prefill(4, 32)
     for m, mdl, params in (
             (jserving, JaxModel(CFG_J), jax.tree.map(jnp.asarray, weights)),
-            (tserving, model, bridge.to_torch(weights))):
+            (tserving, model, bridge.to_torch(weights, device="cpu"))):
         eng = m.ContinuousEngine(mdl, params, 1, 32,
                                  config=m.EngineConfig(prefill_chunk=2))
         with pytest.raises(ValueError, match="chunk"):
             eng.submit(m.Request(prompt=[1, 2, 3, 4], max_new_tokens=2))
-    eng = tserving.ContinuousEngine(model, bridge.to_torch(weights), 1, 32)
+    eng = tserving.ContinuousEngine(model, bridge.to_torch(weights, device="cpu"), 1, 32)
     assert eng.submit(tserving.Request(prompt=[1, 2, 3, 4],
                                        max_new_tokens=2)) is None
 
@@ -262,7 +262,8 @@ def test_distributed_engine_matches_jax_engine(weights, impl):
         batch_slots=2, cache_cap=32, config=jserving.EngineConfig())
     want = _streams(ref.serve(reqs(jserving)))
     eng = tserving.DistributedEngine(
-        Model(CFG_EP, device="cpu"), bridge.to_torch(weights), batch_slots=2,
+        Model(CFG_EP, device="cpu"), bridge.to_torch(weights, device="cpu"),
+        batch_slots=2,
         cache_cap=32, group=LocalGroup(4, "cpu"), moe_impl=impl,
         config=tserving.EngineConfig(kernels=True))
     assert eng.n_ep == 4 and eng.model.pc.moe_impl == impl

@@ -321,7 +321,7 @@ def test_decode_past_the_ring_matches_jax(masked):
     cfg_j, params = _weights("gemma3-27b")
     mj = JaxModel(cfg_j).with_kernels()
     mt = Model(get_config("gemma3-27b").reduced(), device="cpu").with_kernels()
-    pt = bridge.to_torch(params)
+    pt = bridge.to_torch(params, device="cpu")
     pj = jax.tree.map(jnp.asarray, params)
     prefill_j, decode_j = _jit_model(mj)
     rng = np.random.default_rng(9)
@@ -361,7 +361,7 @@ def test_model_logits_match_jax(arch):
     logits of the port's Model, kernel path and plain, equal the JAX
     Model's; a frozen row keeps its cache."""
     cfg_j, params = _weights(arch)
-    pt = bridge.to_torch(params)
+    pt = bridge.to_torch(params, device="cpu")
     pj = jax.tree.map(jnp.asarray, params)
     mj = JaxModel(cfg_j).with_kernels()
     prefill_j, decode_j = _jit_model(mj)

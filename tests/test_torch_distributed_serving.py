@@ -95,7 +95,7 @@ def _engine(weights, impl="aurora", overlap=False, kernels=True, **kw):
     config = tserving.EngineConfig(prefill_len=8, kernels=kernels,
                                    **kw.pop("config", {}))
     return tserving.DistributedEngine(
-        Model(CFG, device="cpu"), bridge.to_torch(weights[0]),
+        Model(CFG, device="cpu"), bridge.to_torch(weights[0], device="cpu"),
         batch_slots=2, cache_cap=32, group=LocalGroup(N_RANKS, "cpu"),
         moe_impl=impl, overlap=overlap, config=config, **kw)
 
@@ -207,7 +207,7 @@ def test_colocated_replan_refreshes_rounds(weights):
         hub = tserving.Telemetry(block_steps=False)
         rp = tserving.OnlineReplanner(planner, interval=3, threshold=-1e9,
                                       warmup=1)
-        params_b = tserving.apply_pairing(bridge.to_torch(weights[1]),
+        params_b = tserving.apply_pairing(bridge.to_torch(weights[1], device="cpu"),
                                           list(plan0.pair), CFG)
         kw = dict(batch_slots=2, cache_cap=32, replan=rp,
                   config=tserving.EngineConfig(prefill_len=8, kernels=True,
@@ -216,12 +216,12 @@ def test_colocated_replan_refreshes_rounds(weights):
         model = Model(CFG, device="cpu")
         if distributed:
             eng = tserving.DistributedColocatedEngine(
-                model, model, bridge.to_torch(weights[0]), params_b,
+                model, model, bridge.to_torch(weights[0], device="cpu"), params_b,
                 group=LocalGroup(N_RANKS, "cpu"), plan=plan0, overlap=True,
                 refresh_rounds=refresh, **kw)
         else:
             eng = tserving.ColocatedContinuousEngine(
-                model, model, bridge.to_torch(weights[0]), params_b,
+                model, model, bridge.to_torch(weights[0], device="cpu"), params_b,
                 pair=list(plan0.pair), **kw)
         r0 = getattr(eng, "rounds", None)
         ra = _reqs(tserving, _prompts(1), new=4)
@@ -252,7 +252,7 @@ def test_multi_tenant_regroup_refreshes_rounds(weights):
     def serve(refresh):
         eng = tserving.DistributedMultiTenantEngine(
             [Model(CFG, device="cpu")] * 3,
-            [bridge.to_torch(w) for w in weights], batch_slots=2,
+            [bridge.to_torch(w, device="cpu") for w in weights], batch_slots=2,
             cache_cap=32, group=LocalGroup(N_RANKS, "cpu"), moe_impl="aurora",
             refresh_rounds=refresh,
             config=tserving.EngineConfig(prefill_len=8, kernels=True),

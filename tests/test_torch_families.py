@@ -74,7 +74,7 @@ def _jax(arch):
 
 def _port(arch):
     return (Model(get_config(arch).reduced(), device="cpu"),
-            bridge.to_torch(_weights(arch)))
+            bridge.to_torch(_weights(arch), device="cpu"))
 
 
 def _streams(reqs):
@@ -241,7 +241,7 @@ def test_bf16_logits_within_bf16_of_jax(arch):
     pj = jax.tree.map(jnp.asarray, w)
     mt = Model(dataclasses.replace(get_config(arch).reduced(),
                                    dtype="bfloat16"), device="cpu")
-    pt = bridge.to_torch(w)
+    pt = bridge.to_torch(w, device="cpu")
     inputs = _prefill_inputs(arch, mt.cfg, np.random.default_rng(3), 2, 7)
     src = inputs["frames"].shape[1] if "frames" in inputs else 0
     cj = mj.init_cache(2, 16, src_len=src, per_slot_len=True)

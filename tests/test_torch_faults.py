@@ -201,7 +201,7 @@ def test_plan_at_and_corruption_flag():
 def test_corrupt_in_place_matches_jax(setup, layer):
     _, params_j, params_np, _ = setup
     want = jfaults.corrupt_moe_params(params_j, 2, layer=layer)
-    pt = bridge.to_torch(params_np)
+    pt = bridge.to_torch(params_np, device="cpu")
     got = tfaults.corrupt_moe_params(pt, 2, layer=layer)
     assert got is pt
     for a, b in zip(_flat(got), jax.tree.leaves(want)):
@@ -221,7 +221,7 @@ def _stream(m, vocab, n=4, max_new=3, prompt_len=4, seed=123):
 def _engine(setup, kernels=True, **kw):
     _, _, params_np, model = setup
     return tserving.ContinuousEngine(
-        model, bridge.to_torch(params_np), 2, 32,
+        model, bridge.to_torch(params_np, device="cpu"), 2, 32,
         config=tserving.EngineConfig(prefill_len=4, kernels=kernels, **kw))
 
 
@@ -319,7 +319,7 @@ def _chaos(setup, m, faults, n_devices=2, replication=None, planner=False,
                                  config=config)
         core = jcore
     else:
-        eng = m.ContinuousEngine(model, bridge.to_torch(params_np), 2, 32,
+        eng = m.ContinuousEngine(model, bridge.to_torch(params_np, device="cpu"), 2, 32,
                                  config=config)
         core = tcore
     if replication is not None:
@@ -442,7 +442,7 @@ def test_pristine_copy_is_logical_and_on_the_host(setup):
     h = tserving.ChaosHarness(eng, tserving.FaultInjector(
         tserving.FaultPlan(), n_devices=1))
     want = [leaf.numpy() for leaf in
-            tm.expert_leaves(bridge.to_torch(setup[2]))]
+            tm.expert_leaves(bridge.to_torch(setup[2], device="cpu"))]
     assert len(h._pristine) == 3 == len(want)
     for slabs, w in zip(h._pristine, want):
         np.testing.assert_array_equal(np.stack([s.numpy() for s in slabs]), w)

@@ -271,3 +271,28 @@ def test_kernel_geometry_rejects_what_the_kernels_cannot_take():
     assert big["smem"] <= 227 * 1024 and big["tile"] < 512    # tile capped
     assert big["buffers"] == 2
     assert da_geometry(2, 8, 2, 64, 72, torch.bfloat16)["lpp"] == 16
+
+
+def test_kernels_refuse_grad_where_the_plain_version_differentiates():
+    """The CUDA kernels have no backward: their wrappers refuse an input
+    that needs a grad (``_build.refuse_grad``, run on a CUDA tensor; on the
+    card ``chip_smoke.py`` gates both wrappers), while on a CPU tensor each
+    wrapper runs its plain version, whose grads flow."""
+    from repro_torch.kernels import _build
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((2, 4, 8), np.float32))
+    ws = [torch.from_numpy(rng.standard_normal(s, np.float32))
+          for s in ((2, 8, 16), (2, 8, 16), (2, 16, 8))]
+    x.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward: train on the plain"):
+        _build.refuse_grad("moe_gmm", x, *ws)
+    with torch.no_grad():
+        _build.refuse_grad("moe_gmm", x, *ws)
+    _build.refuse_grad("moe_gmm", x.detach(), *ws)
+    (gx,) = torch.autograd.grad(moe_gmm(x, *ws).sum(), x)
+    assert gx.shape == x.shape and bool(gx.abs().sum() > 0)
+    q = torch.randn(2, 4, 8, requires_grad=True)
+    k = torch.randn(2, 6, 2, 8)
+    (gq,) = torch.autograd.grad(
+        decode_attn(q, k, k, torch.tensor([3, 6])).sum(), q)
+    assert gq.shape == q.shape

@@ -282,7 +282,7 @@ def test_meta_trace_equals_the_thread_rank_0(arch):
             cap, src = _cap_src(cfg, shape)
             model = Model(cfg, device="cpu",
                           pc=make_pc(cfg, rm, batch=b, cap=cap, src_len=src))
-            params = shard_params(to_torch(params_np),
+            params = shard_params(to_torch(params_np, device="cpu"),
                                   param_specs(cfg, rm), rm, rm.rank)
             cache = model.init_cache(b, cap, src_len=src)
             assert dryrun.tree_bytes(cache) == dryrun.tree_bytes(
@@ -359,7 +359,7 @@ def test_train_and_deferred_pairs_keep_exact_arguments():
         from repro_torch.training import adamw_init, make_train_step
         model = Model(cfg, device="cpu", pc=make_pc(cfg, rm, batch=4, cap=16))
         opt_cfg = specs.opt_config_for(cfg)
-        params = shard_params(to_torch(params_np), param_specs(cfg, rm), rm,
+        params = shard_params(to_torch(params_np, device="cpu"), param_specs(cfg, rm), rm,
                               rm.rank)
         tokens = shard_tensor(torch.ones((4, 16), dtype=torch.int32),
                               input_sharding(cfg, rm, 4), rm, rm.rank)

@@ -147,10 +147,10 @@ def test_mamba_rank_program_matches_jax_and_the_unsharded_port(case):
     assert {k: splits[k] for k in want_splits} == want_splits
     assert ("model" in cspec["state"]) == (case != "heads_replicated")
     assert not any(splits[k] for k in ("norm", "A_log", "D", "dt_bias"))
-    pt = bridge.to_torch(p)
+    pt = bridge.to_torch(p, device="cpu")
     xt = [torch.from_numpy(x) for x in xs]
-    plain_outs, plain_caches = _steps(cfg, pt, xt, bridge.to_torch(cache))
-    ct = bridge.to_torch(cache)
+    plain_outs, plain_caches = _steps(cfg, pt, xt, bridge.to_torch(cache, device="cpu"))
+    ct = bridge.to_torch(cache, device="cpu")
 
     def body(rm):
         ps = {k: bridge.shard_tensor(v, pspec[k], rm, rm.rank)
@@ -186,7 +186,7 @@ def test_an_m_layer_moves_its_named_collective_bytes():
     pspec, cspec = _layer_specs(cfg)
     want = 4 * B * (1072 + 544 + 1 + cfg.d_model)
 
-    pt, ct = bridge.to_torch(p), bridge.to_torch(cache)
+    pt, ct = bridge.to_torch(p, device="cpu"), bridge.to_torch(cache, device="cpu")
 
     def body(rm):
         ps = {k: bridge.shard_tensor(v, pspec[k], rm, rm.rank)

@@ -17,6 +17,9 @@ value the reference's ``moe_apply_ep`` computes.
   the loss within 1e-5 relative and every grad leaf, reassembled by
   ``bridge.unshard_params``, within 1e-5 + 1e-4 x its largest magnitude;
   phi3.5-MoE and DeepSeek-V3 under "aurora" as well as "ep".
+- phi3.5-MoE under Aurora's rounds through the round-pipelined EP body
+  (``ep_overlap``) at (1, 4) and (2, 2) with remat: the loss and grads
+  within 1e-5 of the synchronous body's, and of JAX's as above.
 - One ``make_train_step`` on (2, 2) against JAX's unsharded step: updated
   params and AdamW moments, the clip active.
 - Three planted faults (a grad reduction that skips ``data``, an
@@ -163,14 +166,15 @@ def _ratio(got, want) -> float:
     return worst
 
 
-def _rank_setup(arch, rm, impl="ep"):
+def _rank_setup(arch, rm, impl="ep", overlap=False):
     """(model, specs, params, batch) of one rank: its shards of the
-    carried weights and of the batch."""
+    carried weights and of the batch. ``overlap``: the EP layer runs the
+    round-pipelined body."""
     cfg = _cfgs(arch)[0]
-    model = Model(cfg, device="cpu", pc=make_pc(cfg, rm, impl, batch=B,
-                                                cap=S))
+    model = Model(cfg, device="cpu", pc=dataclasses.replace(
+        make_pc(cfg, rm, impl, batch=B, cap=S), ep_overlap=overlap))
     pspecs = param_specs(cfg, rm)
-    params = bridge.shard_params(bridge.to_torch(_weights(arch)), pspecs,
+    params = bridge.shard_params(bridge.to_torch(_weights(arch), device="cpu"), pspecs,
                                  rm, rm.rank)
     spec = input_sharding(cfg, rm, B)
     batch = {k: bridge.shard_tensor(torch.from_numpy(v), spec, rm, rm.rank)
@@ -178,12 +182,12 @@ def _rank_setup(arch, rm, impl="ep"):
     return model, pspecs, params, batch
 
 
-def _sharded_grads(arch, shape, impl="ep"):
+def _sharded_grads(arch, shape, impl="ep", overlap=False):
     """Every rank's loss and the grads reassembled from their shards."""
     layout = MeshLayout(shape, ("data", "model"))
 
     def body(rm):
-        model, pspecs, params, batch = _rank_setup(arch, rm, impl)
+        model, pspecs, params, batch = _rank_setup(arch, rm, impl, overlap)
         loss, _, grads = loop.loss_and_grads(loop.make_loss_fn(model),
                                              params, batch, rm, pspecs)
         return float(loss), grads
@@ -210,6 +214,32 @@ def test_sharded_loss_and_grads_match_jax(arch, shape):
 def test_aurora_rounds_train_like_the_all_to_all(arch, shape):
     want_loss, want = _reference(arch)
     losses, grads = _sharded_grads(arch, shape, "aurora")
+    assert abs(losses[0] - want_loss) <= LOSS_RTOL * abs(want_loss)
+    assert _ratio(grads, want) <= 1.0
+
+
+def _ratio_strict(got, want) -> float:
+    """The worst leaf's error over 1e-5 + 1e-5 x its largest magnitude."""
+    worst = 0.0
+    for g, w in zip(bridge.tree_leaves(got), bridge.tree_leaves(want),
+                    strict=True):
+        tol = 1e-5 + 1e-5 * float(w.abs().max())
+        worst = max(worst, float((g - w).abs().max()) / tol)
+    return worst
+
+
+@pytest.mark.parametrize("shape", MESHES)
+def test_pipelined_rounds_train_like_the_synchronous_body(shape):
+    """phi3.5-MoE's sharded step with remat under Aurora's rounds through
+    the round-pipelined EP body: the loss and every grad leaf within 1e-5
+    (+ 1e-5 x the leaf's largest magnitude) of the synchronous body's,
+    and within the file's tolerance of JAX's."""
+    sync_losses, sync = _sharded_grads(MOE, shape, "aurora")
+    losses, grads = _sharded_grads(MOE, shape, "aurora", overlap=True)
+    assert len(set(losses)) == 1
+    assert abs(losses[0] - sync_losses[0]) <= 1e-5 * abs(sync_losses[0])
+    assert _ratio_strict(grads, sync) <= 1.0
+    want_loss, want = _reference(MOE)
     assert abs(losses[0] - want_loss) <= LOSS_RTOL * abs(want_loss)
     assert _ratio(grads, want) <= 1.0
 

@@ -2,7 +2,8 @@
 
 - Four gloo ranks (``DistMesh``, spawned as ``tests/_torch_mesh.py``
   does, one spawn for every check) run the reduced phi3.5-MoE's sharded
-  train step on a (2, 2) mesh with remat, under "ep" and "aurora": their
+  train step on a (2, 2) mesh with remat, under "ep", "aurora" and
+  Aurora's rounds through the round-pipelined body ("overlap"): their
   loss, their grads reassembled by ``bridge.unshard_params`` (within
   1e-6) and each rank's collective bytes (exactly) equal the
   ``ThreadMesh`` ranks'. They save their shards of the weights with
@@ -13,9 +14,9 @@
   one ``LocalGroup`` process's within 1e-6 of each leaf's largest
   magnitude (at least 1).
 - The EP exchanges' grads over a ``LocalGroup`` equal the dense layer's;
-  the pipelined body refuses grads; ``train_loop`` on (2, 2) equals the
-  unsharded loop; the dry run's train reckoning of the EP rounds equals
-  rank 0's traced exchanges.
+  ``train_loop`` on (2, 2) equals the unsharded loop; the dry run's train
+  reckoning of the EP rounds equals rank 0's traced exchanges, through
+  the synchronous and the round-pipelined body.
 
 The rank program's loss and grads against JAX are in
 ``test_torch_mesh_train.py``.
@@ -48,7 +49,7 @@ B, S = 4, 16
 MESHES = ((1, 4), (2, 2))
 ARCH = "phi3.5-moe-42b-a6.6b"
 LAYOUT = MeshLayout((2, 2), ("data", "model"))
-IMPLS = ("ep", "aurora")
+IMPLS = ("ep", "aurora", "overlap")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -78,7 +79,7 @@ def _rank_setup(arch, rm):
     cfg = _cfg(arch)
     model = Model(cfg, device="cpu", pc=make_pc(cfg, rm, batch=B, cap=S))
     pspecs = param_specs(cfg, rm)
-    params = bridge.shard_params(bridge.to_torch(_weights(arch)), pspecs,
+    params = bridge.shard_params(bridge.to_torch(_weights(arch), device="cpu"), pspecs,
                                  rm, rm.rank)
     tokens = torch.from_numpy(_inputs()[2]["tokens"])
     batch = {"tokens": bridge.shard_tensor(
@@ -115,7 +116,8 @@ def test_gloo_ranks_train_as_the_thread_ranks(tmp_path):
             [t[0] for t in thread], rel=1e-6)
         assert [g[2] for g in got] == [t[2] for t in thread]
         whole = [bridge.to_torch(bridge.unshard_params(
-            [bridge.to_torch(r[1]) for r in res], specs, LAYOUT))
+            [bridge.to_torch(r[1], device="cpu") for r in res], specs,
+            LAYOUT), device="cpu")
             for res in (got, thread)]
         for a, b in zip(bridge.tree_leaves(whole[0]),
                         bridge.tree_leaves(whole[1])):
@@ -128,7 +130,7 @@ def test_gloo_ranks_train_as_the_thread_ranks(tmp_path):
             np.testing.assert_allclose(
                 a, b, rtol=0, atol=1e-6 * max(1.0, np.abs(b).max()))
     back = training.restore_checkpoint(
-        ck, bridge.map_tree(torch.zeros_like, bridge.to_torch(params)))
+        ck, bridge.map_tree(torch.zeros_like, bridge.to_torch(params, device="cpu")))
     for a, b in zip(bridge.tree_leaves(back),
                     bridge.tree_leaves(params)):
         np.testing.assert_array_equal(a.numpy(), b)
@@ -152,12 +154,12 @@ def test_train_loop_on_a_mesh_matches_the_unsharded_loop():
 
     state, want = training.train_loop(
         Model(cfg, device="cpu"), data(), steps=3, opt_cfg=opt, log_every=1,
-        params=bridge.to_torch(_weights(arch)))
+        params=bridge.to_torch(_weights(arch), device="cpu"))
     layout = MeshLayout((2, 2), ("data", "model"))
 
     def body(rm):
         model = Model(cfg, device="cpu", pc=make_pc(cfg, rm, batch=B, cap=S))
-        params = bridge.shard_params(bridge.to_torch(_weights(arch)),
+        params = bridge.shard_params(bridge.to_torch(_weights(arch), device="cpu"),
                                      param_specs(cfg, rm), rm, rm.rank)
         return training.train_loop(model, data(), steps=3, opt_cfg=opt,
                                    log_every=1, params=params)
@@ -192,7 +194,7 @@ def test_local_group_exchange_grads_equal_the_dense_layer(impl):
     the router as the mean of the ranks' aux."""
     cfg = _cfg(ARCH)
     torch.manual_seed(0)
-    p = bridge.to_torch(_weights(ARCH))["segments"][0][0]["moe"]
+    p = bridge.to_torch(_weights(ARCH), device="cpu")["segments"][0][0]["moe"]
     p = {"router": p["router"][0], "experts": {k: v[0] for k, v in
                                                p["experts"].items()}}
     xt = torch.randn(30, cfg.d_model)
@@ -225,33 +227,23 @@ def test_local_group_exchange_grads_equal_the_dense_layer(impl):
     torch.testing.assert_close(g_aux, want_aux, rtol=1e-5, atol=1e-6)
 
 
-def test_pipelined_dispatch_refuses_grads():
-    layout = MeshLayout((1, 4), ("data", "model"))
-
-    def body(rm):
-        model, pspecs, params, batch = _rank_setup(ARCH, rm)
-        model = dataclasses.replace(model, pc=dataclasses.replace(
-            model.pc, moe_impl="aurora", ep_overlap=True))
-        return loop.loss_and_grads(loop.make_loss_fn(model), params, batch,
-                                   rm, pspecs)
-
-    with pytest.raises(RuntimeError, match="no backward"):
-        ThreadMesh(layout, "cpu", timeout=20).run(body)
-
-
+@pytest.mark.parametrize("overlap", [False, True],
+                         ids=["sync", "overlap"])
 @pytest.mark.parametrize("shape", MESHES)
-def test_train_reckoning_equals_the_traced_exchanges(shape):
+def test_train_reckoning_equals_the_traced_exchanges(shape, overlap):
     """``dryrun.collective_bytes`` of a train step (the EP rounds, forward
     and backward) equals the exchange bytes of rank 0's traced rank
     program on a (1, 4) and a (2, 2) mesh under Aurora's rounds (the
-    rounds move what the reckoning counts: no self-traffic)."""
+    rounds move what the reckoning counts: no self-traffic), through the
+    synchronous body and through the round-pipelined one (the same
+    rounds, each chunk moved once each way)."""
     cfg = _cfg(ARCH)
     layout = MeshLayout(shape, ("data", "model"))
     train = InputShape("t_train", S, B, "train")
     _, args, _ = specs.lowering_args(cfg, train, layout)
     rm = CountingMesh(layout)
-    model = Model(cfg, device="meta", pc=make_pc(cfg, rm, "aurora", batch=B,
-                                                 cap=S))
+    model = Model(cfg, device="meta", pc=dataclasses.replace(
+        make_pc(cfg, rm, "aurora", batch=B, cap=S), ep_overlap=overlap))
     dryrun.trace_step(loop.make_train_step(model, specs.opt_config_for(cfg)),
                       args)
     assert rm.exchange_bytes == dryrun.collective_bytes(cfg, train, 4) > 0

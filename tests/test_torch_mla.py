@@ -31,7 +31,7 @@ B, CAP = 4, 24
 def setup():
     cfg_j = jax_get_config(ARCH).reduced()
     p_j = ja.init_mla(jax.random.PRNGKey(0), cfg_j, jnp.float32)
-    p_t = bridge.to_torch(jax.tree.map(np.asarray, p_j))
+    p_t = bridge.to_torch(jax.tree.map(np.asarray, p_j), device="cpu")
     return cfg_j, get_config(ARCH).reduced(), p_j, p_t
 
 
@@ -111,7 +111,7 @@ def test_decode_matches_jax(setup, lengths, frozen):
         mask = np.array([True, False, True, True])
         c_j = jax.tree.map(lambda new, old: jnp.where(
             jnp.asarray(mask)[:, None, None], new, old), c_j, filled)
-    cache = bridge.to_torch(filled)
+    cache = bridge.to_torch(filled, device="cpu")
     y_t = ta.mla_block(p_t, _t(x), cfg=cfg_t, pos=_t(pos), cache=cache,
                        length=_t(length), mode="decode",
                        row_mask=None if mask is None else _t(mask))

@@ -44,7 +44,7 @@ def setup():
     cfg_j = jax_get_config(ARCH).reduced()
     params_j = JaxModel(cfg_j).init(jax.random.PRNGKey(0))
     params_np = jax.tree.map(np.asarray, params_j)
-    return cfg_j, params_j, bridge.to_torch(params_np)
+    return cfg_j, params_j, bridge.to_torch(params_np, device="cpu")
 
 
 def _moe_layer(params_j, params_t):
@@ -207,7 +207,7 @@ def test_dense_geglu_variant_logits_match_jax():
     params_j = mj.init(jax.random.PRNGKey(1))
     mt = Model(dataclasses.replace(get_config(ARCH).reduced(), **kw),
                device="cpu").with_kernels()
-    params_t = bridge.to_torch(jax.tree.map(np.asarray, params_j))
+    params_t = bridge.to_torch(jax.tree.map(np.asarray, params_j), device="cpu")
     toks = np.random.default_rng(5).integers(1, 500, (2, 8))
     lj, cj = mj.prefill(params_j, {"tokens": jnp.asarray(toks)},
                         mj.init_cache(2, 16))

@@ -41,7 +41,7 @@ def setup():
     cfg_j = jax_get_config(ARCH).reduced()
     params_j = JaxModel(cfg_j).init(jax.random.PRNGKey(0))
     return cfg_j, params_j, bridge.to_torch(jax.tree.map(np.asarray,
-                                                         params_j))
+                                                         params_j), device="cpu")
 
 
 @pytest.mark.parametrize("kernels", [False, True], ids=["dense", "kernel"])

@@ -73,7 +73,7 @@ def test_replication_spec_matches_jax(counts):
         assert getattr(got, name) == getattr(want, name), name
     assert ((tm.ReplicationSpec.from_counts(counts) is None)
             == (jm.ReplicationSpec.from_counts(counts) is None))
-    base, reps = tm.replica_arrays(got)
+    base, reps = tm.replica_arrays(got, device="cpu")
     jb, jr = jm.replica_arrays(want)
     np.testing.assert_array_equal(base.numpy(), np.asarray(jb))
     np.testing.assert_array_equal(reps.numpy(), np.asarray(jr))
@@ -96,7 +96,7 @@ def test_replicate_dereplicate_bit_exact_vs_jax(setup, standalone):
     axis = 0 if standalone else 1
     spec_j = jm.ReplicationSpec.from_counts((2, 1, 3, 1))
     spec_t = tm.ReplicationSpec.from_counts((2, 1, 3, 1))
-    pt = bridge.to_torch(tree)
+    pt = bridge.to_torch(tree, device="cpu")
     before = [a.copy() for a in _flat(pt)]
     wide_j = jm.replicate_moe_params(jax.tree.map(jnp.asarray, tree), spec_j,
                                      axis=axis)
@@ -120,7 +120,7 @@ def test_relayout_equals_replicate_and_frees_slab_by_slab(setup):
     functional widening's values, from stacked leaves and from its own
     per-layer leaves; the stacked source is never written."""
     _, _, params_np = setup
-    pt = bridge.to_torch(params_np)
+    pt = bridge.to_torch(params_np, device="cpu")
     before = [a.copy() for a in _flat(pt)]
     s1 = tm.ReplicationSpec.from_counts((2, 1, 3, 1))
     s2 = tm.ReplicationSpec.from_counts((1, 2, 1, 2))
@@ -192,7 +192,7 @@ def test_repair_from_replica_bit_exact_vs_jax(setup, seed):
     healed_j = jm.repair_moe_params(
         jcorrupt(rep_j, phys, layer=layer), spec_j, [phys])
     bad_t = tserving.faults.corrupt_moe_params(
-        tm.replicate_moe_params(bridge.to_torch(params_np), spec_t), phys,
+        tm.replicate_moe_params(bridge.to_torch(params_np, device="cpu"), spec_t), phys,
         layer=layer)
     assert any(not np.isfinite(a).all() for a in _flat(bad_t))
     healed_t = tm.repair_moe_params(bad_t, spec_t, [phys])
@@ -222,7 +222,7 @@ def test_repair_refuses_what_the_reference_refuses(setup, counts, bad):
           else jm.replicate_moe_params(params_j, spec(jm)))
     with pytest.raises(JaxFaultError) as ej:
         jm.repair_moe_params(pj, spec(jm), bad)
-    pt = bridge.to_torch(jax.tree.map(np.asarray, pj))
+    pt = bridge.to_torch(jax.tree.map(np.asarray, pj), device="cpu")
     before = [a.copy() for a in _flat(pt)]
     with pytest.raises(FaultError) as et:
         tm.repair_moe_params(pt, spec(tm), bad)
@@ -300,7 +300,7 @@ def test_physical_dispatch_integers_match_jax(setup, monkeypatch, kernels, t,
         kc = None
     pj = jm.replicate_moe_params(jax.tree.map(jnp.asarray, p_np), spec_j,
                                  axis=0)
-    pt = tm.replicate_moe_params(bridge.to_torch(p_np), spec_t, axis=0)
+    pt = tm.replicate_moe_params(bridge.to_torch(p_np, device="cpu"), spec_t, axis=0)
     jm.moe_apply(pj, jnp.asarray(x), moe, "swiglu", pc)
     tm.moe_apply(pt, torch.from_numpy(x), moe, "swiglu", kc,
                  replication=spec_t)
@@ -329,7 +329,7 @@ def test_moe_apply_replication_identity(setup, kernels, t, hot):
     spec_t = tm.ReplicationSpec.from_counts((2, 1, 3, 1))
     spec_j = jm.ReplicationSpec.from_counts((2, 1, 3, 1))
     kc = KernelConfig(block_c=8) if kernels else None
-    pt = bridge.to_torch(p_np)
+    pt = bridge.to_torch(p_np, device="cpu")
     y, aux, c = tm.moe_apply(pt, torch.from_numpy(x), moe, "swiglu", kc,
                              return_counts=True)
     y_r, aux_r, c_r = tm.moe_apply(
@@ -385,7 +385,7 @@ def test_engine_adopt_replication_matches_jax(setup, kernels):
         config=jserving.EngineConfig(kernels=kernels))
     want = serve(jserving, eng_j, True)
     model = Model(get_config(ARCH).reduced(), device="cpu")
-    pt = bridge.to_torch(params_np)
+    pt = bridge.to_torch(params_np, device="cpu")
     before = [a.copy() for a in _flat(pt)]
     plain = serve(tserving, tserving.ContinuousEngine(
         model, pt, 2, 32, config=tserving.EngineConfig(kernels=kernels)),
@@ -406,7 +406,8 @@ def test_adopt_forms_idempotence_and_assignment_guard(setup):
     replicas are live, as in the reference."""
     cfg_j, params_j, params_np = setup
     model = Model(get_config(ARCH).reduced(), device="cpu")
-    eng = tserving.ContinuousEngine(model, bridge.to_torch(params_np), 1, 16)
+    eng = tserving.ContinuousEngine(
+        model, bridge.to_torch(params_np, device="cpu"), 1, 16)
     jeng = jserving.ContinuousEngine(JaxModel(cfg_j), params_j, 1, 16)
     for e in (eng, jeng):
         e.adopt_replication((2, 1, 1, 1))

@@ -54,7 +54,7 @@ def test_greedy_streams_match_jax_engine(weights, bucket_policy):
                       config=JaxEngineConfig(kernels=True,
                                              bucket_policy=bucket_policy))
     model = Model(get_config(ARCH).reduced(), device="cpu")
-    eng_t = ContinuousEngine(model, bridge.to_torch(weights), batch_slots=3,
+    eng_t = ContinuousEngine(model, bridge.to_torch(weights, device="cpu"), batch_slots=3,
                              cache_cap=48,
                              config=EngineConfig(kernels=True,
                                                  bucket_policy=bucket_policy))
@@ -125,7 +125,7 @@ def test_chunked_streams_match_jax_engine(weights, case):
                                              **CHUNKED[case](jax_serving)))
     eng_t = ContinuousEngine(
         Model(get_config(ARCH).reduced(), device="cpu"),
-        bridge.to_torch(weights), batch_slots=3, cache_cap=32,
+        bridge.to_torch(weights, device="cpu"), batch_slots=3, cache_cap=32,
         config=EngineConfig(kernels=True, **CHUNKED[case](torch_serving)))
     want = eng_j.serve(_chunked_stream(jax_serving, burst))
     got = eng_t.serve(_chunked_stream(torch_serving, burst))
@@ -154,7 +154,7 @@ def test_bridge_round_trip_is_bit_exact(weights):
     bf16 = {"w": np.asarray(jax.numpy.asarray(
         np.random.default_rng(0).standard_normal((3, 5)), jax.numpy.bfloat16))}
     for tree in (weights, cache, bf16):
-        back = bridge.to_numpy(bridge.to_torch(tree))
+        back = bridge.to_numpy(bridge.to_torch(tree, device="cpu"))
         paths = bridge.leaf_paths(tree)
         assert sorted(map(str, bridge.leaf_paths(back))) == sorted(map(str, paths))
         for path in paths:

@@ -152,8 +152,8 @@ def test_mamba_block_matches_jax(s, cached):
                  "state": _rand(rng, 2, H, P, N, scale=0.1)}
     fn = jax.jit(lambda p, x, c: jssm.mamba_block(p, x, CFG_J, c))
     yj, cj = fn(p, x, cache)
-    cache_t = bridge.to_torch(cache) if cached else None
-    yt = tssm.mamba_block(bridge.to_torch(p), _t(x), CFG, cache_t)
+    cache_t = bridge.to_torch(cache, device="cpu") if cached else None
+    yt = tssm.mamba_block(bridge.to_torch(p, device="cpu"), _t(x), CFG, cache_t)
     _close(yt, yj, FP32)
     if cached:
         _close(cache_t["conv"], cj["conv"], FP32)
@@ -176,9 +176,9 @@ def test_mamba_decode_matches_jax(masked):
              "state": _rand(rng, 3, H, P, N, scale=0.1)}
     yj, cj = jax.jit(lambda p, x, c: jssm.mamba_decode(p, x, CFG_J, c))(
         p, x, cache)
-    cache_t = bridge.to_torch(cache)
+    cache_t = bridge.to_torch(cache, device="cpu")
     mask = torch.tensor([True, not masked, True])
-    yt = tssm.mamba_decode(bridge.to_torch(p), _t(x), CFG, cache_t,
+    yt = tssm.mamba_decode(bridge.to_torch(p, device="cpu"), _t(x), CFG, cache_t,
                            mask if masked else None)
     _close(yt, yj, FP32)
     for name in ("conv", "state"):

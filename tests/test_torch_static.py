@@ -47,7 +47,7 @@ def _jax(arch, seed=0):
 
 def _port(arch, seed=0):
     return (Model(get_config(arch).reduced(), device="cpu"),
-            bridge.to_torch(_weights(arch, seed)))
+            bridge.to_torch(_weights(arch, seed), device="cpu"))
 
 
 def _streams(reqs):

@@ -252,7 +252,7 @@ def test_engine_with_hub_matches_jax(setup, case):
             eng = m.ContinuousEngine(JaxModel(cfg_j), params_j, 2, 32,
                                      config=config, monitor=monitor)
         else:
-            eng = m.ContinuousEngine(model, bridge.to_torch(params_np), 2,
+            eng = m.ContinuousEngine(model, bridge.to_torch(params_np, device="cpu"), 2,
                                      32, config=config, monitor=monitor)
         reqs = eng.serve(_requests(m))
         return [list(map(int, r.out_tokens)) for r in reqs], eng
@@ -280,7 +280,7 @@ def test_engine_disabled_hub_records_nothing(setup):
     *_, params_np, model = setup
     tel = tserving.Telemetry(enabled=False)
     eng = tserving.ContinuousEngine(
-        model, bridge.to_torch(params_np), 2, 32,
+        model, bridge.to_torch(params_np, device="cpu"), 2, 32,
         config=tserving.EngineConfig(prefill_len=4, telemetry=tel))
     eng.serve(_requests(tserving)[:2])
     assert len(tel.spans) == 0 and len(tel.bus) == 0
@@ -294,7 +294,7 @@ def test_shed_events_ring_bounded_and_published(setup):
     *_, params_np, model = setup
     tel = tserving.Telemetry()
     eng = tserving.ContinuousEngine(
-        model, bridge.to_torch(params_np), 2, 32,
+        model, bridge.to_torch(params_np, device="cpu"), 2, 32,
         config=tserving.EngineConfig(
             admission=tserving.EdfAdmission(chunk=4, budget=6, shed=True,
                                             queue_cap=2),
@@ -340,14 +340,14 @@ def test_chaos_and_adoptions_publish_to_the_hub(setup):
         plan, n_devices=2,
         health=tserving.HealthMonitor(n_devices=2, telemetry=tel))
     eng = tserving.ContinuousEngine(
-        model, bridge.to_torch(params_np), 2, 32,
+        model, bridge.to_torch(params_np, device="cpu"), 2, 32,
         config=tserving.EngineConfig(prefill_len=4, kernels=True,
                                      step_wrapper=inj.wrap, telemetry=tel))
     eng.adopt_replication((2, 1, 1, 1))
     h = tserving.ChaosHarness(eng, inj)
     got = [list(r.out_tokens) for r in h.serve(_requests(tserving))]
     clean = tserving.ContinuousEngine(
-        model, bridge.to_torch(params_np), 2, 32,
+        model, bridge.to_torch(params_np, device="cpu"), 2, 32,
         config=tserving.EngineConfig(prefill_len=4, kernels=True))
     assert got == [list(r.out_tokens) for r in clean.serve(
         _requests(tserving))]
@@ -380,7 +380,7 @@ def test_colocated_engines_with_hub(setup, tenants):
             ps = [params_j] * tenants
         else:
             mods = [model] * tenants
-            ps = [bridge.to_torch(params_np) for _ in range(tenants)]
+            ps = [bridge.to_torch(params_np, device="cpu") for _ in range(tenants)]
         streams = [_requests(m) for _ in range(tenants)]
         if tenants == 2:
             eng = m.ColocatedContinuousEngine(*mods, *ps, batch_slots=2,

@@ -134,7 +134,7 @@ def test_cross_entropy_and_logit_grads_match_jax(dtype):
     jl_ = jnp.asarray(logits).astype(dtype)
     want, want_g = jax.value_and_grad(jax_cross_entropy)(
         jl_, jnp.asarray(labels), vocab)
-    t = bridge.leaf_to_torch(np.asarray(jl_)).requires_grad_(True)
+    t = bridge.leaf_to_torch(np.asarray(jl_), device="cpu").requires_grad_(True)
     got = cross_entropy(t, torch.from_numpy(labels), vocab)
     (got_g,) = torch.autograd.grad(got, t)
     assert got_g.dtype == t.dtype
@@ -160,7 +160,7 @@ def test_train_loss_and_grads_match_jax(case):
         jparams, {k: jnp.asarray(v) for k, v in batch.items()})
     model = Model(cfg, device="cpu")
     loss, _, grads = loss_and_grads(_port_loss(model), bridge.to_torch(
-        _weights(arch)), _torch_batch(batch))
+        _weights(arch), device="cpu"), _torch_batch(batch))
     np.testing.assert_allclose(float(loss), float(want), rtol=LOSS_RTOL)
     _close_leaves(grads, want_g, case)
 
@@ -171,7 +171,7 @@ def test_remat_grads_equal_plain_grads(arch):
     bit for bit (zamba2's shared block: the sum over its uses)."""
     cfg = get_config(arch).reduced()
     model = Model(cfg, device="cpu")
-    params = bridge.to_torch(_weights(arch))
+    params = bridge.to_torch(_weights(arch), device="cpu")
     batch = _torch_batch(_batch(cfg, arch, seed=1))
     plain = loss_and_grads(_port_loss(model), params, batch)
     remat = loss_and_grads(_port_loss(model, remat=True), params, batch)
@@ -227,7 +227,7 @@ def test_mamba_block_grads_over_a_padded_chunk_match_jax():
         return jnp.sum(jssm.mamba_block(p, x, jcfg, None)[0] * w)
     want, (want_gp, want_gx) = jax.jit(jax.value_and_grad(
         jloss, argnums=(0, 1)))(jax.tree.map(jnp.asarray, p_np), x)
-    p = bridge.to_torch(p_np)
+    p = bridge.to_torch(p_np, device="cpu")
     leaves = bridge.tree_leaves(p)
     xt = torch.from_numpy(x).requires_grad_(True)
     for t in leaves:
@@ -245,7 +245,7 @@ def test_train_logits_refuses_kernels_expert_parallel_and_replicas():
     ported, and replicated experts would drift apart: each raises instead
     of training wrong."""
     cfg = get_config(MOE).reduced()
-    params = bridge.to_torch(_weights(MOE))
+    params = bridge.to_torch(_weights(MOE), device="cpu")
     batch = _torch_batch(_batch(cfg, MOE))
     with pytest.raises(ValueError, match="no backward"):
         Model(cfg, device="cpu").with_kernels().train_logits(params, batch)
@@ -282,14 +282,14 @@ def test_adamw_matches_jax(param_dtype, state_dtype, monkeypatch):
     jp = jax.tree.map(lambda a: jnp.asarray(a).astype(param_dtype), p0)
     jopt = jtraining.adamw_init(jp, jcfg)
     tcfg = training.AdamWConfig(**cfg)
-    tp = bridge.to_torch(jax.tree.map(np.asarray, jp))
+    tp = bridge.to_torch(jax.tree.map(np.asarray, jp), device="cpu")
     topt = training.adamw_init(tp, tcfg)
     jupd = jax.jit(functools.partial(jtraining.adamw_update, cfg=jcfg))
     for g in grads:
         jg = jax.tree.map(lambda a: jnp.asarray(a).astype(param_dtype), g)
         jp, jopt = jupd(jp, jg, jopt)
         tp, topt = training.adamw_update(
-            tp, bridge.to_torch(jax.tree.map(np.asarray, jg)), topt, tcfg)
+            tp, bridge.to_torch(jax.tree.map(np.asarray, jg), device="cpu"), topt, tcfg)
         assert topt["step"].dtype == torch.int32
         assert int(topt["step"]) == int(jopt["step"])
         for got, want, dt in ((tp, jp, param_dtype),
@@ -339,17 +339,17 @@ def test_leaf_order_is_jax_flatten_order():
                 "step": np.int32(3)}
         tree = {k: tree[k] for k in ("v", "step", "m")}
         want = jax.tree.leaves(tree)
-        got = bridge.tree_leaves(bridge.to_torch(tree))
+        got = bridge.tree_leaves(bridge.to_torch(tree, device="cpu"))
         assert len(got) == len(want)
         for a, b in zip(got, want):
             assert a.numpy().tobytes() == np.asarray(b).tobytes()
-        assert training.checkpoint._treedef(bridge.to_torch(tree)) == str(
+        assert training.checkpoint._treedef(bridge.to_torch(tree, device="cpu")) == str(
             jax.tree.structure(tree))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_checkpoint_round_trip(tmp_path, dtype):
-    params = bridge.to_torch(_params(dtype))
+    params = bridge.to_torch(_params(dtype), device="cpu")
     opt = training.adamw_init(params, training.AdamWConfig())
     tree = {"params": params, "opt": opt}
     training.save_checkpoint(str(tmp_path), tree, step=7)
@@ -368,7 +368,7 @@ def test_jax_checkpoint_restores_into_port(tmp_path, dtype):
     src = _params(dtype)
     jtraining.save_checkpoint(str(tmp_path / "jax"), jax.tree.map(
         jnp.asarray, src), step=3)
-    like = bridge.map_tree(torch.zeros_like, bridge.to_torch(src))
+    like = bridge.map_tree(torch.zeros_like, bridge.to_torch(src, device="cpu"))
     back = training.restore_checkpoint(str(tmp_path / "jax"), like)
     for a, b in zip(bridge.tree_leaves(back), jax.tree.leaves(src)):
         assert str(a.dtype) == f"torch.{dtype}"
@@ -389,7 +389,7 @@ def test_jax_checkpoint_restores_into_port(tmp_path, dtype):
 
 def test_port_checkpoint_restores_into_jax(tmp_path):
     src = _params("float32")
-    training.save_checkpoint(str(tmp_path), bridge.to_torch(src), step=5)
+    training.save_checkpoint(str(tmp_path), bridge.to_torch(src, device="cpu"), step=5)
     zeros = jax.tree.map(jnp.zeros_like, src)
     back = jtraining.restore_checkpoint(str(tmp_path), zeros)
     assert jax.tree.structure(back) == jax.tree.structure(src)
@@ -415,7 +415,7 @@ def test_train_loop_matches_jax():
         Model(get_config(MOE).reduced(), device="cpu"),
         training.SyntheticLMData(**data), steps=5,
         opt_cfg=training.AdamWConfig(**opt), log_every=1,
-        params=bridge.to_torch(_weights(MOE)))
+        params=bridge.to_torch(_weights(MOE), device="cpu"))
     assert state.step == 5 and int(state.opt["step"]) == 5
     assert [h["step"] for h in got] == [h["step"] for h in want] == [
         0, 1, 2, 3, 4]
