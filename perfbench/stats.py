@@ -1,0 +1,25 @@
+"""Tails and rates over all samples, and the spread the bounds are set from."""
+
+from __future__ import annotations
+
+import math
+import statistics
+
+
+def percentile(values, q: float) -> float:
+    """The q-th percentile (0-100) of every value, linearly interpolated
+    between the two nearest ranks (numpy's default rule)."""
+    xs = sorted(values)
+    if not xs:
+        raise ValueError("percentile of no values")
+    pos = (len(xs) - 1) * q / 100.0
+    lo = math.floor(pos)
+    hi = min(lo + 1, len(xs) - 1)
+    return xs[lo] + (xs[hi] - xs[lo]) * (pos - lo)
+
+
+def spread(values) -> float:
+    """Distance between the first and third quartiles as a share of the
+    median (``statistics.quantiles(values, n=4)``)."""
+    q1, med, q3 = statistics.quantiles(values, n=4)
+    return (q3 - q1) / med
